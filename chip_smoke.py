@@ -14,7 +14,17 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      run_call -- calibrated routing threshold, forced device
      (device_min_cells=1), host only -- with byte-equal VCF bodies, both
      kernels and the phasing EM launched in the forced run, and jax never
-     imported.
+     imported;
+  5. the whole-genome path: the same reads over a seeded 8 Mb contig
+     (16 windows, so 8 explicit worker processes engage the window-range
+     pool) called through run_call with host_procs=8 -- (a) device
+     workers (procs_use_device, device_min_cells=1), all on cuda:0, and
+     (b) host-only workers -- and, for the walls' sake, (c) in-process
+     host-only (host_procs=0); byte-equal VCF bodies, no kernel launched
+     in the parent, both kernels and the phasing EM launched inside the
+     workers of (a), device DP cells in at least two workers, none in (b)
+     or (c), and jax never imported.  A host with fewer than 8 cores
+     gets hp = cpu_count workers and a contig of 2 * hp windows.
 The last lines are the card line, a JSON line of the kernels, and
 {"ok": true, "device": {...}}.
 """
@@ -37,13 +47,19 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 X, O1, E1, O2, E2 = 6, 6, 2, 24, 1
 B = 256
 KERNEL_SHAPES = [(Lp, n) for Lp in (256, 1024, 4096) for n in (64, 512)]
+WINDOW = 500_000             # CallOpts' default window
+POOL_PROCS = 8               # phase 5 workers (capped by the host's cores)
+
+
+def nvidia_smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
 
 
 def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True, timeout=60).stdout.strip().splitlines()[0]
+    return nvidia_smi("name,power.limit")
 
 
 def make_batch(rng, n, Lp):
@@ -190,22 +206,12 @@ def check_offband_walk(Lp=256, n=64):
           f"bit-equal, {n_off} pairs went off band", flush=True)
 
 
-def build_workload(d: str, seed: int = 2026):
-    """Seeded 2 Mb contig with planted SNVs, indels and ~25 SVs/Mb, and a
-    30x BAM of 15 kb HiFi-like reads (0.3% substitutions)."""
-    sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from synthcontig import build_truth, write_synth_bam, write_synth_fasta
-
-    L = 2_000_000
-    rng = np.random.default_rng(seed)
-    ref4 = rng.integers(0, 4, L).astype(np.uint8)
-    truth = build_truth(rng, ref4, 10_000, L - 10_000, sv_per_mb=25)
-    fa, bam = os.path.join(d, "synth.fa"), os.path.join(d, "synth.bam")
-    write_synth_fasta(fa, "chr1", ref4)
-    n_reads = write_synth_bam(bam, "chr1", L, ref4, truth, 10_000, L - 10_000,
-                              coverage=30, read_len=15_000, err=0.003,
-                              seed=seed + 1)
-    return fa, bam, n_reads, len(truth)
+def build_workload(d: str, seed: int = 2026, L: int = 2_000_000):
+    """Seeded contig of L bases with planted SNVs, indels and ~25 SVs/Mb,
+    and a 30x BAM of 15 kb HiFi-like reads (0.3% substitutions)."""
+    from torch_helpers import build_contig
+    return build_contig(d, seed, L, coverage=30, read_len=15_000,
+                        margin=10_000)
 
 
 def run_main_path(fa, bam):
@@ -216,6 +222,7 @@ def run_main_path(fa, bam):
     from longcalld_tpu.utils import counters
     from longcalld_torch.core.pipeline import run_call
     from longcalld_torch.ops import band, phase_kernel, wfa
+    from torch_helpers import vcf_body
 
     configs = [("calibrated", dict(use_device=True)),
                ("forced", dict(use_device=True, device_min_cells=1)),
@@ -235,8 +242,7 @@ def run_main_path(fa, bam):
         n_rec = run_call(opt, out, "chip_smoke", device="cuda:0")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        bodies[name] = [ln for ln in out.getvalue().splitlines()
-                        if not ln.startswith("#")]
+        bodies[name] = vcf_body(out.getvalue())
         al = wfa.get_aligner(opt, torch.device("cuda:0"))
         reports[name] = {
             "wall_s": wall, "records": n_rec,
@@ -248,6 +254,104 @@ def run_main_path(fa, bam):
             "counters": counters.summary_lines(),
         }
         print(f"main path [{name}]: {json.dumps(reports[name])}", flush=True)
+    return bodies, reports
+
+
+class MemPeak:
+    """Peak card memory in use (total - free, all processes) sampled from
+    torch.cuda.mem_get_info every 50 ms while the block runs."""
+
+    def __init__(self):
+        import threading
+        self.peak = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+
+    def _poll(self):
+        import torch
+        while not self._stop.is_set():
+            free, total = torch.cuda.mem_get_info(0)
+            self.peak = max(self.peak, total - free)
+            self._stop.wait(0.05)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def run_pool(fa, bam, hp):
+    """Phase 5: the port's run_call over the same contig three ways -- on
+    the window-range pool with device workers, on the pool with host-only
+    workers, and in-process host-only; returns (VCF bodies, reports)."""
+    import torch
+
+    from longcalld_tpu.config import CallOpts
+    from longcalld_tpu.utils import counters
+    from longcalld_torch.core import pipeline, procpool
+    from longcalld_torch.ops import band, phase_kernel, wfa
+    from torch_helpers import pool_calls, vcf_body
+
+    configs = [("device_workers", hp, dict(procs_use_device=True,
+                                           device_min_cells=1)),
+               ("host_workers", hp, dict()),
+               ("in_process", 0, dict(use_device=False))]
+    bodies, reports = {}, {}
+    try:
+        for name, procs, kw in configs:
+            opt = CallOpts.hifi(ref_fa_fn=fa, in_bam_fns=[bam], n_threads=8,
+                                host_procs=procs, **kw)
+            counters.reset()
+            wfa._ALIGNER_CACHE.clear()
+            # the parent's own launch counts: they must stay 0
+            band.reset_launch_counts()
+            phase_kernel.reset_cuda_calls()
+            out = io.StringIO()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            free, total = torch.cuda.mem_get_info(0)
+            with MemPeak() as mem, pool_calls(pipeline) as taken:
+                t0 = time.perf_counter()
+                n_rec = pipeline.run_call(opt, out, "chip_smoke",
+                                          device="cuda:0")
+                wall = time.perf_counter() - t0
+            # each run starts its workers cold, and no device worker is
+            # alive during the later runs
+            procpool.shutdown()
+            want = [(2 * hp, hp)] if procs else []
+            if taken != want:
+                raise AssertionError(f"run {name} took the pool as {taken}, "
+                                     f"not as {want}")
+            bodies[name] = vcf_body(out.getvalue())
+            snap = counters.snapshot()
+            # pool runs sum the workers' aligner deltas into aln_*
+            cells = ({k: snap.get(f"aln_{k}", 0)
+                      for k in ("cells_device", "cells_host")} if procs else
+                     {k: wfa.aligner_totals()[k]
+                      for k in ("cells_device", "cells_host")})
+            reports[name] = {
+                "wall_s": wall, "records": n_rec, "host_procs": procs,
+                "parent_launches": band.launch_counts(),
+                "parent_phase_cuda_calls": phase_kernel.cuda_calls(),
+                "worker_launches": {
+                    k: snap.get(f"aln_{k}_launches", 0)
+                    for k in ("band_fwd", "band_bwd")},
+                "worker_phase_cuda_calls": snap.get("aln_phase_cuda_calls",
+                                                    0),
+                **cells,
+                "cells_device_by_worker": {
+                    k[len("aln_cells_device_"):]: v
+                    for k, v in sorted(snap.items())
+                    if k.startswith("aln_cells_device_w")},
+                "card_mem_before_mib": (total - free) / 2**20,
+                "peak_card_mem_mib": mem.peak / 2**20,
+            }
+            print(f"pool [{name}]: {json.dumps(reports[name])}", flush=True)
+    finally:
+        procpool.shutdown()
     return bodies, reports
 
 
@@ -280,6 +384,7 @@ def main() -> int:
               "needs one CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
     from longcalld_torch.utils import kbuild
 
     card = card_line()
@@ -327,6 +432,65 @@ def main() -> int:
           f"{len(bodies['host'])} records; jax in sys.modules: False",
           flush=True)
 
+    mode = nvidia_smi("compute_mode")
+    print(f"compute mode: {mode}; os.cpu_count(): {os.cpu_count()}",
+          flush=True)
+    if "exclusive" in mode.lower():
+        raise AssertionError(f"compute mode {mode}: several device worker "
+                             "processes cannot share the card")
+    hp = min(POOL_PROCS, os.cpu_count() or 1)
+    if hp < 2:
+        raise AssertionError("the pool needs at least 2 cores")
+    if hp < POOL_PROCS:
+        print(f"only {os.cpu_count()} cores: {hp} workers over a "
+              f"{2 * hp}-window contig", flush=True)
+    with tempfile.TemporaryDirectory() as d:
+        L = 2 * hp * WINDOW
+        t0 = time.perf_counter()
+        fa, bam, n_reads, n_truth = build_workload(d, L=L)
+        print(f"workload: {L / 1e6:g} Mb contig, {n_truth} planted "
+              f"variants, {n_reads} reads, built in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        pbodies, preports = run_pool(fa, bam, hp)
+        for name in ("device_workers", "in_process"):
+            if pbodies[name] != pbodies["host_workers"]:
+                raise AssertionError(f"VCF body of the {name} run differs "
+                                     "from the host workers' run")
+        if not pbodies["host_workers"]:
+            raise AssertionError("no variant records on the pool")
+        check_vcf(pbodies["host_workers"], fa)
+    pdev, phost = preports["device_workers"], preports["host_workers"]
+    pseq = preports["in_process"]
+    for name, rep in preports.items():
+        if (rep["parent_launches"] != {"band_fwd": 0, "band_bwd": 0}
+                or rep["parent_phase_cuda_calls"]):
+            raise AssertionError(f"the parent launched a kernel in the "
+                                 f"{name} run")
+    for k, v in pdev["worker_launches"].items():
+        if v <= 0:
+            raise AssertionError(f"kernel {k} never launched in a device "
+                                 "worker")
+    if pdev["worker_phase_cuda_calls"] <= 0:
+        raise AssertionError("phasing EM never ran on CUDA in a worker")
+    busy = [w for w, v in pdev["cells_device_by_worker"].items() if v > 0]
+    if len(busy) < 2:
+        raise AssertionError(f"device DP cells in fewer than 2 workers: "
+                             f"{pdev['cells_device_by_worker']}")
+    if phost["cells_device"] != 0 or any(phost["worker_launches"].values()):
+        raise AssertionError("host-only workers ran device work")
+    if pseq["cells_device"] != 0:
+        raise AssertionError("the host-only in-process run ran device work")
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+    print(f"pool: VCF bodies byte-equal across device workers, host "
+          f"workers and in-process: {len(pbodies['host_workers'])} records; "
+          f"walls {pdev['wall_s']:.3f} s (device workers) / "
+          f"{phost['wall_s']:.3f} s (host workers) / {pseq['wall_s']:.3f} s "
+          f"(in-process, host only); device cells in {len(busy)} workers; card "
+          f"memory in use {pdev['card_mem_before_mib']:.0f} MiB before, "
+          f"{pdev['peak_card_mem_mib']:.0f} MiB at peak; jax in "
+          "sys.modules: False", flush=True)
+
     big = max(krows, key=lambda r: (r["Lp"], r["batch"]))
     kernels = []
     for name, src, ref, key in (
@@ -337,6 +501,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": ref,
             "launches": forced["launches"][name],
+            "procs_launches": pdev["worker_launches"][name],
             "max_abs_err": max(r[f"{key}_err"] for r in krows),
             "ms": big[f"{key}_ms"], "plain_ms": big[f"{key}_plain_ms"]})
     print(card)

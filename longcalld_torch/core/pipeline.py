@@ -1,18 +1,24 @@
 """End-to-end calling pipeline of the port: longcalld_tpu/core/pipeline.py's
-call_window (:153-237) and run_call (:672-944).  Window loading, digars,
-sites, classify, profile, genotype, stitch and VCF output are the JAX
-package's host code, imported unchanged; phasing and the noisy-region
-stage go through the port (longcalld_torch.core.phase / .noisy), whose
-device work runs on torch devices.
+call_window (:153-237), _range_worker (:379-408), _worker_env_fn
+(:469-488), _run_call_procs (:571-669) and run_call (:672-944).  Window
+loading, digars, sites, classify, profile, genotype, stitch, the
+cross-range flip and VCF output are the JAX package's host code, imported
+unchanged; phasing and the noisy-region stage go through the port
+(longcalld_torch.core.phase / .noisy), whose device work runs on torch
+devices.
 
+run_call takes the same path as the JAX run_call for the same options:
+many-window streams go to the window-range process pool
+(core/procpool.py), host-only workers unless ``procs_use_device``.
 Differences from the JAX run_call:
-* in-process only: the window-range process pool (_run_call_procs) is not
-  ported yet, so ``host_procs`` is ignored;
 * no executable prewarm (PyTorch has nothing to compile per shape);
 * ``device`` is explicit (default cuda:0, raising when CUDA is absent);
-  windows round-robin over ``torch.cuda.device_count()`` cards, capped by
-  ``window_devices``;
-* ``--shard auto`` (the JAX process index) raises; ``--shard i/n`` works;
+  in-process, windows round-robin over ``torch.cuda.device_count()``
+  cards, capped by ``window_devices``; device workers own a card each
+  through ``CUDA_VISIBLE_DEVICES`` (see _worker_env_fn);
+* ``--shard auto`` reads the process group's ``RANK``/``WORLD_SIZE``
+  (as torchrun sets them; 0/1 when unset) in place of
+  ``jax.process_index()``/``process_count()``;
 * ``use_device=False`` is host-only and touches no torch device.
 """
 
@@ -27,8 +33,11 @@ from longcalld_tpu import config
 from longcalld_tpu.config import CallOpts
 from longcalld_tpu.core import classify, genotype, profile
 from longcalld_tpu.core.chunk import WindowChunk
-from longcalld_tpu.core.pipeline import (_filter_busy_windows, _open_aln,
-                                         _sample_from_header, collect_digars,
+from longcalld_tpu.core.pipeline import (_apply_cross_flip, _boundary_state,
+                                         _cross_flip_decision,
+                                         _filter_busy_windows, _open_aln,
+                                         _plan_ranges, _sample_from_header,
+                                         _worker_handles, collect_digars,
                                          load_chunk, stitch_pair)
 from longcalld_tpu.core.sites import (collect_all_cand_var_sites,
                                       collect_cand_vars_fast)
@@ -145,19 +154,250 @@ def _window_devices(opt: CallOpts, device):
     return devs if len(devs) > 1 else [dev]
 
 
+# ---------------- process-parallel window ranges (kt_for analog) ----------
+#
+# The JAX package's design (longcalld_tpu/core/pipeline.py:320-337):
+# window RANGES run in share-nothing worker processes that genotype without
+# stitching and return per-window records plus boundary-read states; the
+# parent runs every stitch vote serially (_cross_flip_decision /
+# _apply_cross_flip, imported unchanged).
+
+
+def _worker_totals() -> dict:
+    """This process's aligner counters plus the kernel launch counts and
+    the phasing EM's CUDA calls: a range's delta of these proves, in the
+    parent, that the kernels ran inside the worker."""
+    from longcalld_torch.ops import band, phase_kernel
+    from longcalld_torch.ops.wfa import aligner_totals
+    tot = aligner_totals()
+    for name, n in band.launch_counts().items():
+        tot[f"{name}_launches"] = n
+    tot["phase_cuda_calls"] = phase_kernel.cuda_calls()
+    return tot
+
+
+def _range_worker(payload):
+    """Process one contiguous window range in a pool worker.  ``device``
+    is the torch device of a device worker (``opt.use_device``), resolved
+    before any window so that a worker whose card is missing raises
+    instead of running host-only.  Returns (per-window results, counter
+    delta); each per-window entry is either None (no reads) or (sorted
+    variant records, n_reads, boundary state)."""
+    opt, wslice, first_k, count, device = payload
+    dev = None
+    if getattr(opt, "use_device", True):
+        from longcalld_torch.utils.device import resolve_device
+        dev = resolve_device(device)
+    fasta, bams, te_idx = _worker_handles(opt)
+    if te_idx is not None:
+        setattr(opt, "_te_index", te_idx)
+        setattr(opt, "_te_names", te_idx.names)
+    before = _worker_totals()
+    results = []
+    for k in range(first_k, first_k + count):
+        win = wslice[k]
+        pw = wslice[k - 1] if k > 0 else None
+        pw = pw if (pw and pw.chunk_i == win.chunk_i) else None
+        nxt = wslice[k + 1] if k + 1 < len(wslice) else None
+        nxt = nxt if (nxt and nxt.chunk_i == win.chunk_i) else None
+        chunk = load_chunk(opt, fasta, bams, win, pw, nxt)
+        if chunk is None:
+            results.append(None)
+            continue
+        if dev is not None:
+            chunk._device = dev
+        call_window(opt, chunk)
+        variants = genotype.make_variants(opt, chunk)
+        variants.sort(key=lambda v: v.pos)
+        results.append((variants, chunk.n_reads, _boundary_state(chunk)))
+    after = _worker_totals()
+    return results, {k: after[k] - before[k] for k in after}
+
+
+# CallOpts.worker_device_env's default, written for TPU hosts
+TPU_WORKER_ENV = "TPU_VISIBLE_DEVICES={k}"
+
+
+def _worker_env_fn(opt, device):
+    """Per-worker env overrides of device workers, from the CallOpts
+    template ``worker_device_env`` (;-separated NAME=VALUE entries with
+    {k} = worker index, {n} = pool size).  A template other than the
+    default is applied verbatim.  The default, ``TPU_VISIBLE_DEVICES={k}``
+    (worker k owns chip k on a TPU host), becomes
+    ``CUDA_VISIBLE_DEVICES=cards[k mod len(cards)]`` for a CUDA
+    ``device``.  ``cards`` are the cards this process may use: the
+    entries of its own ``CUDA_VISIBLE_DEVICES`` when that is set (so a
+    worker never leaves the parent's mask), else 0..device_count()-1;
+    capped by ``window_devices``.  On one card every worker owns that
+    card.  For a CPU ``device`` it becomes ``CUDA_VISIBLE_DEVICES=`` (no
+    worker opens a CUDA context)."""
+    import os
+
+    import torch
+
+    from longcalld_tpu.core.pipeline import _worker_env_fn as template_env
+
+    if str(getattr(opt, "worker_device_env", "") or "") != TPU_WORKER_ENV:
+        return template_env(opt)
+    if torch.device(device).type == "cpu":
+        return lambda k, n: {"CUDA_VISIBLE_DEVICES": ""}
+    count = torch.cuda.device_count()
+    mask = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if mask is not None:
+        cards = [s.strip() for s in mask.split(",") if s.strip()][:count]
+    else:
+        cards = [str(i) for i in range(count)]
+    nd = int(getattr(opt, "window_devices", 0) or 0)
+    if nd:
+        cards = cards[:nd]
+    if not cards:
+        raise RuntimeError("device workers requested but no CUDA card is "
+                           "visible")
+    return lambda k, n: {"CUDA_VISIBLE_DEVICES": cards[k % len(cards)]}
+
+
+def _run_call_procs(opt: CallOpts, out: TextIO, wins, n_workers: int,
+                    bams=None, device=None) -> int:
+    """kt_for over windows as share-nothing worker processes; the parent
+    is the serial stage-1/2 consumer: it runs every stitch vote in window
+    order and emits records (the JAX _run_call_procs, :571-669).
+
+    Workers are host-only by default.  With ``procs_use_device`` each
+    worker keeps ``use_device`` and runs the band kernels and the phasing
+    EM on its own card (worker_device_env), so N processes scale the host
+    stages past the GIL AND drive the device.  Before the first device
+    worker starts, the parent resolves ``device`` (raising without CUDA)
+    and builds the kernels once, so the workers only load the library."""
+    import dataclasses
+
+    from longcalld_torch.core import procpool
+    from longcalld_tpu.utils import counters, log
+
+    dev_workers = bool(getattr(opt, "procs_use_device", False))
+    opt_w = dataclasses.replace(opt, use_device=dev_workers,
+                                checkpoint_dir=None)
+    env_fn = None
+    worker_dev = None
+    if dev_workers:
+        from longcalld_torch.utils.device import resolve_device
+        dev = resolve_device(device)
+        if dev.type == "cuda":
+            from longcalld_torch.utils import kbuild
+            kbuild.load()
+        env_fn = _worker_env_fn(opt, dev)
+        # a device worker runs on the first card it sees
+        worker_dev = "cuda:0" if dev.type == "cuda" else str(dev)
+    n_out = 0
+    n_reads_done = 0
+    prev_state = None
+    wi = 0
+
+    # checkpoint / resume (same per-window npz schema as the in-process
+    # path, so either mode resumes the other's directory): replay the done
+    # prefix, then plan ranges over the pending suffix only
+    ckpt = None
+    first_pending = 0
+    if getattr(opt, "checkpoint_dir", None):
+        from longcalld_tpu.utils.checkpoint import Checkpoint
+        ckpt = Checkpoint(opt.checkpoint_dir, opt)
+        ckpt.pin_window_plan(wins)
+        first_pending = min(ckpt.resume_prefix(), len(wins))
+        for wi in range(first_pending):
+            body, n_rec, n_reads_w, prev_state = ckpt.load_procs_state(wi)
+            out.write(body)
+            n_out += n_rec
+            n_reads_done += n_reads_w
+            if n_rec or n_reads_w:
+                log.info("run_call",
+                         f"Processed {n_reads_done} reads, {wi + 1}/"
+                         f"{len(wins)} chunks (resumed). Output {n_out} "
+                         "variants.")
+        wi = first_pending
+        if first_pending >= len(wins):
+            return n_out
+
+    ranges, order = _plan_ranges(wins[first_pending:], n_workers, bams)
+    ranges = [(first_pending + f, c) for f, c in ranges]
+    range_worker: dict = {}
+    for ridx, (results, cdelta) in enumerate(procpool.imap_ranges(
+            opt_w, wins, ranges, n_workers, worker_env_fn=env_fn,
+            range_worker_out=range_worker, order=order,
+            device=worker_dev)):
+        for k, v in cdelta.items():
+            if v:
+                counters.inc(f"aln_{k}", v)
+                if dev_workers:
+                    # per-worker attribution: which worker ran this
+                    # range's alignment work and kernel launches
+                    counters.inc(f"aln_{k}_w{range_worker.get(ridx, -1)}", v)
+        for entry in results:
+            win = wins[wi]
+            if entry is None:
+                prev_state = None
+                if ckpt is not None:
+                    ckpt.save_procs_state(wi, "", 0, 0, None)
+                wi += 1
+                continue
+            variants, n_reads_w, state = entry
+            if prev_state is not None and win.reg_i > 0:
+                decision = _cross_flip_decision(prev_state, state)
+                if decision is not None:
+                    _apply_cross_flip(variants, state, decision)
+            if ckpt is None:
+                n_rec = write_var_records(out, win.tname, variants, opt)
+            else:
+                import io as _io
+                buf = _io.StringIO()
+                n_rec = write_var_records(buf, win.tname, variants, opt)
+                body = buf.getvalue()
+                out.write(body)
+                # saved POST-flip, so a resume's first vote sees the same
+                # boundary haps/PS the uninterrupted run would
+                ckpt.save_procs_state(wi, body, n_rec, n_reads_w, state)
+            n_out += n_rec
+            n_reads_done += n_reads_w
+            log.info("run_call",
+                     f"Processed {n_reads_done} reads, {wi + 1}/"
+                     f"{len(wins)} chunks. Output {n_out} variants.")
+            prev_state = state
+            wi += 1
+    return n_out
+
+
+def _shard_spec(shard: str):
+    """(index, count) of ``--shard``: ``i/n``, or ``auto`` for the process
+    group's RANK/WORLD_SIZE as torchrun sets them (0/1 when unset, which
+    is what jax.process_index()/process_count() give in one process)."""
+    import os as _os
+    if shard == "auto":
+        return (int(_os.environ.get("RANK", "0")),
+                int(_os.environ.get("WORLD_SIZE", "1")))
+    si, sn = (int(x) for x in shard.split("/"))
+    return si, sn
+
+
 def run_call(opt: CallOpts, out: TextIO = sys.stdout,
              cmdline: str = "longcalld-torch call", device=None) -> int:
-    """Full `call` command, in-process.  Returns the number of emitted
-    variant lines.  ``device``: torch device of the kernels (default
-    cuda:0) when ``opt.use_device``."""
+    """Full `call` command.  Returns the number of emitted variant lines.
+    ``device``: torch device of the kernels (default cuda:0) when
+    ``opt.use_device`` in-process, or of the workers with
+    ``procs_use_device``."""
     import os as _os
     import threading
     from concurrent.futures import ThreadPoolExecutor
 
     from longcalld_tpu.utils import counters, log
 
-    window_devs = _window_devices(opt, device)
+    # process-parallel eligibility, exactly the JAX run_call's
+    # (pipeline.py:679-691): host_procs -1 = auto (follow -t), 0 = off,
+    # N = exactly N workers; phased-alignment output pins in-process
     n_threads = max(1, int(getattr(opt, "n_threads", 1) or 1))
+    hp = int(getattr(opt, "host_procs", -1))
+    hp_explicit = hp > 0
+    if hp < 0:
+        hp = n_threads if n_threads > 1 else 0
+    hp = min(hp, _os.cpu_count() or max(hp, 1))
+    procs_eligible = hp > 1 and opt.out_bam_fn is None
     fasta = FastaFile(opt.ref_fa_fn, getattr(opt, 'ref_fai_fn', None))
     bams = [_open_aln(fn, opt.ref_fa_fn) for fn in opt.in_bam_fns]
     if opt.te_seq_fn:
@@ -177,11 +417,7 @@ def run_call(opt: CallOpts, out: TextIO = sys.stdout,
     if opt.shard:
         # each host takes every n-th region chunk; the shard VCFs partition
         # the unsharded output (merge with `longcalld-torch merge`)
-        if opt.shard == "auto":
-            raise NotImplementedError(
-                "--shard auto is not yet ported to longcalld_torch; pass "
-                "--shard i/n")
-        si, sn = (int(x) for x in opt.shard.split("/"))
+        si, sn = _shard_spec(opt.shard)
         if not (0 <= si < sn):
             raise ValueError(f"bad shard spec {opt.shard!r}")
         chunk_filter = lambda ci: ci % sn == si  # noqa: E731
@@ -210,6 +446,13 @@ def run_call(opt: CallOpts, out: TextIO = sys.stdout,
         log.info("run_call",
                  f"{n_dropped}/{n_wins_planned} windows proven read-free by "
                  f"the alignment index; processing {len(wins)}.")
+
+    # hand many-window streams to the process pool (pipeline.py:769-773);
+    # few-window runs stay on the in-process thread path
+    use_procs = procs_eligible and len(wins) >= (2 if hp_explicit else 4) * hp
+    if use_procs:
+        return _run_call_procs(opt, out, wins, hp, bams, device)
+    window_devs = _window_devices(opt, device)
 
     bam_writer = None
     if opt.out_bam_fn:

@@ -150,12 +150,6 @@ def test_cuda_requested_without_cuda_raises(workload, monkeypatch):
         run_call_torch(_opt(*workload, use_device=True), io.StringIO(), "t")
 
 
-def test_shard_auto_not_ported(workload):
-    with pytest.raises(NotImplementedError, match="shard"):
-        run_call_torch(_opt(*workload, use_device=False, shard="auto"),
-                       io.StringIO(), "t")
-
-
 def test_shard_partition_merges_to_full_run(workload, tmp_path):
     """--shard i/n takes every n-th region chunk; merging the shard VCFs
     gives the JAX package's unsharded records (host-only, so cheap)."""
