@@ -24,7 +24,16 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      in the parent, both kernels and the phasing EM launched inside the
      workers of (a), device DP cells in at least two workers, none in (b)
      or (c), and jax never imported.  A host with fewer than 8 cores
-     gets hp = cpu_count workers and a contig of 2 * hp windows.
+     gets hp = cpu_count workers and a contig of 2 * hp windows;
+  6. the mesh: 4 shards on the first min(4, device_count()) distinct
+     cards (on one card, cuda:0 four times) -- (a) the reads-sharded
+     phasing EM against the one-device EM at the real bucket sizes
+     (R, V) = (2048, 2048) and (8192, 8192), bit-equal, with CUDA-event
+     ms of both; (b) sharded_window_phase over 8 windows against the
+     per-window EM, bit-equal; (c) run_call with mesh_devices=4 and
+     device_min_cells=1 on phase 4's 2 Mb contig, with a VCF body
+     byte-equal to phase 4's host-only body, both kernels launched, the
+     sharded EM run on CUDA, and jax never imported.
 The last lines are the card line, a JSON line of the kernels, and
 {"ok": true, "device": {...}}.
 """
@@ -49,6 +58,8 @@ B = 256
 KERNEL_SHAPES = [(Lp, n) for Lp in (256, 1024, 4096) for n in (64, 512)]
 WINDOW = 500_000             # CallOpts' default window
 POOL_PROCS = 8               # phase 5 workers (capped by the host's cores)
+MESH_SHARDS = 4              # phase 6 mesh size
+EM_SHAPES = [(2048, 2048), (8192, 8192)]   # phase 6 (a): (R, V) buckets
 
 
 def nvidia_smi(query: str) -> str:
@@ -355,6 +366,96 @@ def run_pool(fa, bam, hp):
     return bodies, reports
 
 
+def phase_mesh():
+    """The first min(MESH_SHARDS, device_count()) distinct cards, repeated
+    to MESH_SHARDS entries."""
+    import torch
+    cards = [f"cuda:{k}" for k in range(min(MESH_SHARDS,
+                                            torch.cuda.device_count()))]
+    return [cards[k % len(cards)] for k in range(MESH_SHARDS)]
+
+
+def check_mesh_em(mesh):
+    """Phase 6 (a) and (b): the sharded forms against the one-device EM
+    on the card; returns their rows."""
+    from longcalld_torch.entry import differing_fields
+    from longcalld_torch.ops import phase_kernel
+    from longcalld_torch.ops.convert import from_numpy
+    from longcalld_torch.parallel.mesh import (make_example_window_batch,
+                                               sharded_window_phase,
+                                               window_phase_batch)
+    from torch_helpers import phase_window
+
+    lead = mesh[0]
+    sharded = phase_kernel.sharded_phase_fixpoint(mesh)
+    rows = []
+    for R, V in EM_SHAPES:
+        args = from_numpy(phase_window(R + V, R=R, V=V, noise=0.05), lead)
+        one = phase_kernel.phase_fixpoint(*args)
+        sh = sharded(*args)
+        bad = differing_fields(sh, one)
+        if bad:
+            raise AssertionError(f"sharded EM differs from the one-device "
+                                 f"EM at (R, V) = ({R}, {V}): {bad}")
+        reps = 10 if R <= 2048 else 3
+        row = {"R": R, "V": V, "n_iter": one.n_iter,
+               "one_device_ms": cuda_ms(
+                   lambda: phase_kernel.phase_fixpoint(*args), reps),
+               "sharded_ms": cuda_ms(lambda: sharded(*args), reps)}
+        rows.append(row)
+        print(f"mesh EM (R, V) = ({R}, {V}), {one.n_iter} rounds: one "
+              f"device {row['one_device_ms']:.3f} ms, {len(mesh)} shards "
+              f"{row['sharded_ms']:.3f} ms, bit-equal", flush=True)
+    batch = from_numpy(make_example_window_batch(8, 2048, 2048, seed=6),
+                       lead)
+    out, total = sharded_window_phase(mesh, batch)
+    ref = window_phase_batch(batch)
+    bad = differing_fields(out, ref)
+    if bad or total != int((ref.haps > 0).sum()):
+        raise AssertionError(f"sharded_window_phase differs from the "
+                             f"per-window EM: {bad}, total {total}")
+    row = {"windows": 8, "R": 2048, "V": 2048, "phased_reads": total,
+           "one_device_ms": cuda_ms(lambda: window_phase_batch(batch), 3),
+           "sharded_ms": cuda_ms(
+               lambda: sharded_window_phase(mesh, batch), 3)}
+    rows.append(row)
+    print(f"mesh window batch (8 windows of 2048 x 2048): per-window EM "
+          f"{row['one_device_ms']:.3f} ms, in blocks over the mesh "
+          f"{row['sharded_ms']:.3f} ms, bit-equal, {total} phased reads",
+          flush=True)
+    return rows
+
+
+def run_mesh_call(fa, bam, mesh):
+    """Phase 6 (c): the port's run_call with mesh_devices on phase 4's
+    contig; returns (VCF body, report)."""
+    import torch
+
+    from longcalld_tpu.config import CallOpts
+    from longcalld_torch.core.pipeline import run_call
+    from longcalld_torch.ops import band, phase_kernel, wfa
+    from torch_helpers import vcf_body
+
+    opt = CallOpts.hifi(ref_fa_fn=fa, in_bam_fns=[bam], n_threads=8,
+                        use_device=True, device_min_cells=1,
+                        mesh_devices=len(mesh))
+    wfa._ALIGNER_CACHE.clear()
+    # launch counts from here on are the mesh run's own
+    band.reset_launch_counts()
+    phase_kernel.reset_cuda_calls()
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_rec = run_call(opt, out, "chip_smoke", device=mesh[0], mesh=mesh)
+    torch.cuda.synchronize()
+    report = {"wall_s": time.perf_counter() - t0, "records": n_rec,
+              "mesh": mesh, "launches": band.launch_counts(),
+              "phase_cuda_calls": phase_kernel.cuda_calls(),
+              "phase_sharded_calls": phase_kernel.sharded_calls()}
+    print(f"mesh call: {json.dumps(report)}", flush=True)
+    return vcf_body(out.getvalue()), report
+
+
 def check_vcf(body, fa):
     """Structural check of the records: sorted positions, REF bases that
     match the FASTA, a diploid GT."""
@@ -403,20 +504,24 @@ def main() -> int:
     krows = check_kernels(KERNEL_SHAPES)
     check_offband_walk()
 
-    with tempfile.TemporaryDirectory() as d:
-        t0 = time.perf_counter()
-        fa, bam, n_reads, n_truth = build_workload(d)
-        print(f"workload: 2 Mb contig, {n_truth} planted variants, "
-              f"{n_reads} reads, built in {time.perf_counter() - t0:.1f} s",
-              flush=True)
-        bodies, reports = run_main_path(fa, bam)
-        for name in ("forced", "host"):
-            if bodies[name] != bodies["calibrated"]:
-                raise AssertionError(f"VCF body of the {name} run differs "
-                                     "from the calibrated run")
-        if not bodies["host"]:
-            raise AssertionError("no variant records")
-        check_vcf(bodies["host"], fa)
+    # phase 4's contig stays for phase 6 (c); the directory's finalizer
+    # removes it on any exit
+    tmp4 = tempfile.TemporaryDirectory()
+    d = tmp4.name
+    t0 = time.perf_counter()
+    fa, bam, n_reads, n_truth = build_workload(d)
+    print(f"workload: 2 Mb contig, {n_truth} planted variants, "
+          f"{n_reads} reads, built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    bodies, reports = run_main_path(fa, bam)
+    for name in ("forced", "host"):
+        if bodies[name] != bodies["calibrated"]:
+            raise AssertionError(f"VCF body of the {name} run differs "
+                                 "from the calibrated run")
+    if not bodies["host"]:
+        raise AssertionError("no variant records")
+    check_vcf(bodies["host"], fa)
+    main_contig = (fa, bam)
     forced = reports["forced"]
     for k, v in forced["launches"].items():
         if v <= 0:
@@ -491,6 +596,27 @@ def main() -> int:
           f"{pdev['peak_card_mem_mib']:.0f} MiB at peak; jax in "
           "sys.modules: False", flush=True)
 
+    mesh = phase_mesh()
+    print(f"mesh: {mesh} ({torch.cuda.device_count()} cards visible)",
+          flush=True)
+    check_mesh_em(mesh)
+    mbody, mrep = run_mesh_call(*main_contig, mesh)
+    tmp4.cleanup()
+    if mbody != bodies["host"]:
+        raise AssertionError("VCF body of the mesh run differs from the "
+                             "host-only run")
+    for k, v in mrep["launches"].items():
+        if v <= 0:
+            raise AssertionError(f"kernel {k} never launched in the mesh run")
+    if mrep["phase_sharded_calls"] <= 0 or mrep["phase_cuda_calls"] <= 0:
+        raise AssertionError("the sharded EM never ran on CUDA in the mesh "
+                             "run")
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+    print(f"mesh call: VCF body byte-equal to host only: {len(mbody)} "
+          f"records; wall {mrep['wall_s']:.3f} s; jax in sys.modules: False",
+          flush=True)
+
     big = max(krows, key=lambda r: (r["Lp"], r["batch"]))
     kernels = []
     for name, src, ref, key in (
@@ -502,6 +628,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src, "replaces": ref,
             "launches": forced["launches"][name],
             "procs_launches": pdev["worker_launches"][name],
+            "mesh_launches": mrep["launches"][name],
             "max_abs_err": max(r[f"{key}_err"] for r in krows),
             "ms": big[f"{key}_ms"], "plain_ms": big[f"{key}_plain_ms"]})
     print(card)

@@ -16,6 +16,12 @@ Differences from the JAX run_call:
   in-process, windows round-robin over ``torch.cuda.device_count()``
   cards, capped by ``window_devices``; device workers own a card each
   through ``CUDA_VISIBLE_DEVICES`` (see _worker_env_fn);
+* ``mesh_devices > 1`` (reads-axis sharded phasing, parallel/mesh.py):
+  as in JAX, no window round-robin; the aligner runs on ``device`` and
+  each window's EM over ``make_mesh(mesh_devices, device)`` or the
+  explicit ``mesh`` list.  Device workers own one card, so
+  ``procs_use_device`` with a CUDA mesh raises in the parent (the JAX
+  worker quietly shards over the one chip it sees);
 * ``--shard auto`` reads the process group's ``RANK``/``WORLD_SIZE``
   (as torchrun sets them; 0/1 when unset) in place of
   ``jax.process_index()``/``process_count()``;
@@ -132,19 +138,20 @@ def call_window(opt: CallOpts, chunk: WindowChunk) -> None:
             collect_somatic_var(opt, chunk)
 
 
+def _mesh_devices(opt: CallOpts) -> int:
+    return int(getattr(opt, "mesh_devices", 0) or 0)
+
+
 def _window_devices(opt: CallOpts, device):
-    """Devices the windows round-robin over; empty for a host-only run."""
+    """Devices the windows round-robin over; empty for a host-only run.
+    With a mesh (``mesh_devices > 1``) every window runs on ``device``."""
     if not getattr(opt, "use_device", True):
         return []
-    if int(getattr(opt, "mesh_devices", 0) or 0) > 1:
-        raise NotImplementedError(
-            "mesh_devices > 1 (reads-axis sharded phasing) is not yet "
-            "ported to longcalld_torch")
     import torch
 
     from longcalld_torch.utils.device import resolve_device
     dev = resolve_device(device)
-    if dev.type != "cuda":
+    if dev.type != "cuda" or _mesh_devices(opt) > 1:
         return [dev]
     devs = [resolve_device(torch.device("cuda", k))
             for k in range(torch.cuda.device_count())]
@@ -165,14 +172,15 @@ def _window_devices(opt: CallOpts, device):
 
 def _worker_totals() -> dict:
     """This process's aligner counters plus the kernel launch counts and
-    the phasing EM's CUDA calls: a range's delta of these proves, in the
-    parent, that the kernels ran inside the worker."""
+    the phasing EM's CUDA and sharded calls: a range's delta of these
+    proves, in the parent, that the kernels ran inside the worker."""
     from longcalld_torch.ops import band, phase_kernel
     from longcalld_torch.ops.wfa import aligner_totals
     tot = aligner_totals()
     for name, n in band.launch_counts().items():
         tot[f"{name}_launches"] = n
     tot["phase_cuda_calls"] = phase_kernel.cuda_calls()
+    tot["phase_sharded_calls"] = phase_kernel.sharded_calls()
     return tot
 
 
@@ -281,6 +289,12 @@ def _run_call_procs(opt: CallOpts, out: TextIO, wins, n_workers: int,
     if dev_workers:
         from longcalld_torch.utils.device import resolve_device
         dev = resolve_device(device)
+        if dev.type == "cuda" and _mesh_devices(opt) > 1:
+            raise ValueError(
+                f"mesh_devices={opt.mesh_devices} with procs_use_device on "
+                "CUDA: a device worker owns one card, so it has no mesh to "
+                "shard over; run in-process (host_procs=0) or set "
+                "mesh_devices=0")
         if dev.type == "cuda":
             from longcalld_torch.utils import kbuild
             kbuild.load()
@@ -377,11 +391,15 @@ def _shard_spec(shard: str):
 
 
 def run_call(opt: CallOpts, out: TextIO = sys.stdout,
-             cmdline: str = "longcalld-torch call", device=None) -> int:
+             cmdline: str = "longcalld-torch call", device=None,
+             mesh=None) -> int:
     """Full `call` command.  Returns the number of emitted variant lines.
     ``device``: torch device of the kernels (default cuda:0) when
     ``opt.use_device`` in-process, or of the workers with
-    ``procs_use_device``."""
+    ``procs_use_device``.  ``mesh``: an explicit device list (it may
+    repeat a card) for the in-process phasing mesh, only with
+    ``opt.mesh_devices > 1`` and of that length; default
+    ``make_mesh(opt.mesh_devices, device)``."""
     import os as _os
     import threading
     from concurrent.futures import ThreadPoolExecutor
@@ -453,6 +471,12 @@ def run_call(opt: CallOpts, out: TextIO = sys.stdout,
     if use_procs:
         return _run_call_procs(opt, out, wins, hp, bams, device)
     window_devs = _window_devices(opt, device)
+    if mesh is not None and _mesh_devices(opt) <= 1:
+        raise ValueError("run_call: a mesh is given but opt.mesh_devices "
+                         f"is {opt.mesh_devices}")
+    if window_devs and _mesh_devices(opt) > 1:
+        from longcalld_torch.parallel.mesh import make_mesh
+        mesh = make_mesh(opt.mesh_devices, window_devs[0], devices=mesh)
 
     bam_writer = None
     if opt.out_bam_fn:
@@ -493,6 +517,7 @@ def run_call(opt: CallOpts, out: TextIO = sys.stdout,
         if chunk is not None:
             if window_devs:
                 chunk._device = window_devs[wi % len(window_devs)]
+                chunk._mesh = mesh
             call_window(opt, chunk)
         return chunk
 

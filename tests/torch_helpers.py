@@ -36,6 +36,43 @@ def pool_calls(module):
         module._run_call_procs = real
 
 
+def phase_window(seed, R=96, V=80, noise=0.03, hp_on=False, no_valid=False):
+    """Inputs of the phasing EM for one window (tests/test_torch_phase.py:
+    _window): two haplotypes plus noise, reads in random order with
+    partial spans, -1 (uncovered) and -2 alleles, digar-less reads,
+    unphased reads and a partly filled starting consensus; ``no_valid``
+    clears the valid-var mask."""
+    rng = np.random.default_rng(seed)
+    truth = rng.integers(0, 2, V)
+    haps = rng.integers(1, 3, R)
+    alle = np.where(haps[:, None] == 1, truth[None, :], 1 - truth[None, :])
+    alle = np.where(rng.random((R, V)) < noise, 1 - alle, alle)
+    starts = rng.integers(0, V, R)
+    ends = np.minimum(starts + rng.integers(5, V, R), V - 1)
+    cols = np.arange(V)[None, :]
+    span = (cols >= starts[:, None]) & (cols <= ends[:, None])
+    A = np.where(span, alle, -1)
+    A = np.where(span & (rng.random((R, V)) < 0.05), -2, A).astype(np.int8)
+    starts, ends = starts.astype(np.int32), ends.astype(np.int32)
+    skip = rng.random(R) < 0.05                  # digar-less reads
+    starts[skip], ends[skip] = -1, -2
+    cons0 = np.stack([truth, 1 - truth]).astype(np.int8)
+    cons0[:, rng.random(V) < 0.1] = -1
+    flip = rng.random(V) < 0.15                  # consensus to repair
+    cons0[:, flip] = cons0[::-1, flip]
+    haps0 = np.where(rng.random(R) < 0.1, 0, haps).astype(np.int8)
+    valid = rng.random(V) < 0.9
+    scoreable = valid & (rng.random(V) < 0.95)
+    w_score = rng.integers(0, 4, V).astype(np.int32)
+    clean_snp = scoreable & (rng.random(V) < 0.8)
+    hp = rng.random(V) < (0.2 if hp_on else 0.0)
+    hp_ont = hp & hp_on
+    if no_valid:
+        valid = np.zeros_like(valid)
+    return (A, starts, ends, cons0, haps0, scoreable, w_score, clean_snp,
+            valid, hp, hp_ont)
+
+
 def build_contig(d, seed, length, coverage=20, read_len=10_000,
                  margin=2_000, **bam_kw):
     """A seeded diploid contig of ``length`` bases with planted SNVs,
