@@ -33,9 +33,22 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      per-window EM, bit-equal; (c) run_call with mesh_devices=4 and
      device_min_cells=1 on phase 4's 2 Mb contig, with a VCF body
      byte-equal to phase 4's host-only body, both kernels launched, the
-     sharded EM run on CUDA, and jax never imported.
-The last lines are the card line, a JSON line of the kernels, and
-{"ok": true, "device": {...}}.
+     sharded EM run on CUDA, and jax never imported;
+  7. the band widths: (a) each kernel against its plain version at every
+     B in BANDS (multiples of 128 from 128 to 4096, the Pallas kernels'
+     rule), Lp in {256, 2048}, batch 64, plus B = Lp = 4096, bit-equal,
+     with plen == 0 pairs, dummies and, where the pattern is long enough
+     for its path to leave the band, a band-escape pair; (b) CUDA-event ms
+     and DP cells/s of both kernels at bench.py's microbench shape (batch
+     64, B 2048, Lp 2000); (c) the walk on random traceback bytes at B
+     1024 and 4096, bit-equal, with walks off the left edge and off the
+     right edge counted apart (each must happen); (d) BatchAligner.
+     _align_batch on cuda:0 over seeded SV-like pairs (band buckets 1024,
+     4096 and 5128), equal to the same aligner on CPU tensors (the plain
+     versions), with both kernels launched at 1024 and 4096 and nothing
+     launched for the 5128 group.
+The last lines are the card line, a JSON line of the kernels (with a
+``bands`` list per kernel), and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -54,8 +67,15 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # scoring of the HiFi preset (longcalld_tpu/config.py)
 X, O1, E1, O2, E2 = 6, 6, 2, 24, 1
-B = 256
-KERNEL_SHAPES = [(Lp, n) for Lp in (256, 1024, 4096) for n in (64, 512)]
+# (B, Lp, batch) of the kernel checks: phase 3 at the main path's B = 256,
+# phase 7 at every other width the Pallas kernels take
+KERNEL_SHAPES = [(256, Lp, n) for Lp in (256, 1024, 4096) for n in (64, 512)]
+BANDS = (128, 384, 1024, 1152, 2048, 4096)
+BAND_LP = 2048               # the Lp of each width's timing in the JSON line
+BAND_SHAPES = ([(b, Lp, 64) for b in BANDS for Lp in (256, BAND_LP)]
+               + [(4096, 4096, 64)])
+BENCH_SHAPE = (2048, 2000, 64)   # bench.py:178's microbench (B, Lp, batch)
+WALK_BANDS = (1024, 4096)
 WINDOW = 500_000             # CallOpts' default window
 POOL_PROCS = 8               # phase 5 workers (capped by the host's cores)
 MESH_SHARDS = 4              # phase 6 mesh size
@@ -73,11 +93,13 @@ def card_line() -> str:
     return nvidia_smi("name,power.limit")
 
 
-def make_batch(rng, n, Lp):
+def make_batch(rng, n, Lp, B):
     """Device inputs built as BatchAligner._submit_batch builds them, from
     pairs of random length <= Lp with substitutions and short indels; the
-    batch holds a plen == 0 pair, length-1 batch-padding dummies and one
-    pair whose optimal path escapes the band."""
+    batch holds a plen == 0 pair and length-1 batch-padding dummies.
+    Where Lp leaves room for it, pair 3 is a pair whose optimal path
+    escapes the band (a w = B/2 + 16 insertion, later a w deletion: the
+    pattern must outgrow w by a quarter).  Returns (inputs, escape)."""
     pairs = []
     for _ in range(n):
         L = int(rng.integers(Lp // 4, Lp + 1))
@@ -98,10 +120,12 @@ def make_batch(rng, n, Lp):
     for k in (1, 2):
         pairs[k] = (np.zeros(1, np.uint8), np.zeros(1, np.uint8))
     L = Lp - 4                  # escape: +w insertion, later -w deletion
-    p = rng.integers(0, 4, L).astype(np.uint8)
     w = B // 2 + 16
-    pairs[3] = (p, np.concatenate([p[:L // 4], rng.integers(0, 4, w).astype(
-        np.uint8), p[L // 4:L - w]]))
+    escape = L - w > L // 4
+    if escape:
+        p = rng.integers(0, 4, L).astype(np.uint8)
+        pairs[3] = (p, np.concatenate([p[:L // 4], rng.integers(
+            0, 4, w).astype(np.uint8), p[L // 4:L - w]]))
     plens = np.array([len(p) for p, _ in pairs], dtype=np.int32)
     tlens = np.array([len(t) for _, t in pairs], dtype=np.int32)
     m_n = tlens - plens
@@ -114,7 +138,7 @@ def make_batch(rng, n, Lp):
         end = min(off + len(t), Lp + B)
         if end > off >= 0:
             Tband[k, off:end] = t[:end - off]
-    return P, Tband, plens, tlens, dlo
+    return (P, Tband, plens, tlens, dlo), escape
 
 
 def cuda_ms(fn, reps):
@@ -141,8 +165,9 @@ def check_kernels(shapes, plain_reps=1):
     dev = torch.device("cuda:0")
     rng = np.random.default_rng(1234)
     rows = []
-    for Lp, n in shapes:
-        args = from_numpy(make_batch(rng, n, Lp), dev)
+    for B, Lp, n in shapes:
+        arrays, escape = make_batch(rng, n, Lp, B)
+        args = from_numpy(arrays, dev)
         dp = (B, Lp, X, O1, E1, O2, E2)
         tbs_k, fin_k, edge_k = band.banded_dp(*args, *dp)
         tbs_p, fin_p, edge_p = band.banded_dp_plain(*args, *dp)
@@ -151,10 +176,12 @@ def check_kernels(shapes, plain_reps=1):
                     ((tbs_k, tbs_p), (fin_k, fin_p), (edge_k, edge_p)))
         if err_f:
             raise AssertionError(f"band_fwd differs from its plain version "
-                                 f"at Lp={Lp} batch={n}: max |diff| {err_f}")
+                                 f"at B={B} Lp={Lp} batch={n}: max |diff| "
+                                 f"{err_f}")
         fin = fin_k.min(dim=1).values.cpu().numpy()
-        if not int(edge_k[3]) < int(fin[3]):
-            raise AssertionError("escape pair did not escape the band")
+        if escape and not int(edge_k[3]) < int(fin[3]):
+            raise AssertionError(f"escape pair did not escape the band at "
+                                 f"B={B} Lp={Lp}")
         bargs = (tbs_k, args[2], args[3], args[4], fin_k, B, Lp)
         pk_k, b0_k = band.backward_resolve(*bargs)
         pk_p, b0_p, _ = band.backward_resolve_plain(*bargs)
@@ -163,10 +190,11 @@ def check_kernels(shapes, plain_reps=1):
                     int((b0_k - b0_p).abs().max()))
         if err_b:
             raise AssertionError(f"band_bwd differs from its plain version "
-                                 f"at Lp={Lp} batch={n}: max |diff| {err_b}")
+                                 f"at B={B} Lp={Lp} batch={n}: max |diff| "
+                                 f"{err_b}")
         reps = max(2, min(20, 40960 // Lp))
         row = {
-            "Lp": Lp, "batch": n,
+            "B": B, "Lp": Lp, "batch": n, "escape": escape,
             "fwd_ms": cuda_ms(lambda: band.banded_dp(*args, *dp), reps),
             "fwd_plain_ms": cuda_ms(lambda: band.banded_dp_plain(*args, *dp),
                                     plain_reps),
@@ -176,45 +204,126 @@ def check_kernels(shapes, plain_reps=1):
             "fwd_err": err_f, "bwd_err": err_b,
         }
         rows.append(row)
-        print(f"kernel Lp={Lp} batch={n}: band_fwd {row['fwd_ms']:.3f} ms "
+        print(f"kernel B={B} Lp={Lp} batch={n}: band_fwd "
+              f"{row['fwd_ms']:.3f} ms "
               f"(plain {row['fwd_plain_ms']:.1f} ms), band_bwd "
               f"{row['bwd_ms']:.3f} ms (plain {row['bwd_plain_ms']:.1f} ms),"
               " bit-equal", flush=True)
     return rows
 
 
-def check_offband_walk(Lp=256, n=64):
+def check_offband_walk(B, Lp=256, n=64):
     """band_bwd against its plain version on random traceback bytes: real
     DP output falls off the band only in unreachable regions, random bytes
-    do so in most pairs, through both edges."""
+    (tests/torch_helpers.py:random_walk_inputs) do so through each edge,
+    and both exits must happen.  Returns the walks off each edge."""
+    import torch
+
+    from longcalld_torch.ops import band
+    from longcalld_torch.ops.convert import from_numpy
+    from torch_helpers import random_walk_inputs
+
+    rng = np.random.default_rng(7)
+    args = from_numpy(random_walk_inputs(rng, B, Lp, n, spread=60),
+                      torch.device("cuda:0"))
+    pk_k, b0_k = band.backward_resolve(*args, B, Lp)
+    pk_p, b0_p, off_edge = band.backward_resolve_plain(*args, B, Lp)
+    torch.cuda.synchronize()
+    if not (torch.equal(pk_k, pk_p) and torch.equal(b0_k, b0_p)):
+        raise AssertionError(f"band_bwd differs from its plain version on "
+                             f"random traceback bytes at B={B}")
+    n_off = {"left": int((off_edge == band.OFF_LEFT).sum()),
+             "right": int((off_edge == band.OFF_RIGHT).sum())}
+    if not all(n_off.values()):
+        raise AssertionError(f"random walks at B={B} did not leave the band "
+                             f"through both edges: {n_off}")
+    print(f"band_bwd on random traceback bytes (B={B}, Lp={Lp}, batch={n}):"
+          f" bit-equal, walks off the band {n_off}", flush=True)
+    return n_off
+
+
+def bench_kernels():
+    """Phase 7 (b): CUDA-event ms of both kernels at bench.py's microbench
+    shape and inputs (random P and T, plen = tlen = Lp, dlo = -B/2), with
+    DP cells/s = batch * (Lp + 1) * B / time (bench.py:188,254)."""
     import torch
 
     from longcalld_torch.ops import band
     from longcalld_torch.ops.convert import from_numpy
 
-    rng = np.random.default_rng(7)
-    src = rng.integers(0, 5, (Lp + 1, n, B))
-    bits = rng.random((Lp + 1, n, B, 4)) < np.array([0.9, 0.9, 0.6, 0.6])
-    tbs = (src | (bits[..., 0] << 3) | (bits[..., 1] << 4)
-           | (bits[..., 2] << 5) | (bits[..., 3] << 6)).astype(np.uint8)
-    plen = rng.integers(0, Lp + 1, n).astype(np.int32)
-    tlen = np.maximum(plen + rng.integers(-60, 60, n), 0).astype(np.int32)
-    dlo = (np.minimum(0, tlen - plen)
-           - (B - np.abs(tlen - plen)) // 2).astype(np.int32)
-    dlo[:2] += np.array([-B, B], dtype=np.int32)
-    finals = rng.integers(0, 50, (n, 5)).astype(np.int32)
-    args = from_numpy((tbs, plen, tlen, dlo, finals), torch.device("cuda:0"))
-    pk_k, b0_k = band.backward_resolve(*args, B, Lp)
-    pk_p, b0_p, went_off = band.backward_resolve_plain(*args, B, Lp)
-    torch.cuda.synchronize()
-    if not (torch.equal(pk_k, pk_p) and torch.equal(b0_k, b0_p)):
-        raise AssertionError("band_bwd differs from its plain version on "
-                             "random traceback bytes")
-    n_off = int(went_off.sum())
-    if n_off == 0:
-        raise AssertionError("random walk never went off band")
-    print(f"band_bwd on random traceback bytes (Lp={Lp}, batch={n}): "
-          f"bit-equal, {n_off} pairs went off band", flush=True)
+    B, Lp, n = BENCH_SHAPE
+    rng = np.random.default_rng(0)
+    P, Tband, plen, tlen, dlo = from_numpy((
+        rng.integers(0, 4, (n, Lp)).astype(np.int8),
+        rng.integers(0, 4, (n, Lp + B)).astype(np.int8),
+        np.full(n, Lp, np.int32), np.full(n, Lp, np.int32),
+        np.full(n, -B // 2, np.int32)), torch.device("cuda:0"))
+    dp = (B, Lp, X, O1, E1, O2, E2)
+    tbs, fin, _ = band.banded_dp(P, Tband, plen, tlen, dlo, *dp)
+    fwd = cuda_ms(lambda: band.banded_dp(P, Tband, plen, tlen, dlo, *dp), 10)
+    bwd = cuda_ms(lambda: band.backward_resolve(tbs, plen, tlen, dlo, fin, B,
+                                                Lp), 10)
+    cells = n * (Lp + 1) * B
+    row = {"B": B, "Lp": Lp, "batch": n, "fwd_ms": fwd, "bwd_ms": bwd,
+           "fwd_cells_per_s": cells / (fwd * 1e-3),
+           "bwd_cells_per_s": cells / (bwd * 1e-3)}
+    print(f"bench shape (B={B}, Lp={Lp}, batch={n}): band_fwd {fwd:.3f} ms "
+          f"({row['fwd_cells_per_s']:.4g} DP cells/s), band_bwd {bwd:.3f} ms "
+          f"({row['bwd_cells_per_s']:.4g} cells/s)", flush=True)
+    return row
+
+
+def run_align_batch():
+    """Phase 7 (d): BatchAligner._align_batch on cuda:0, one group per SV
+    width (tests/torch_helpers.py:sv_pairs), against the same aligner on
+    CPU tensors, which runs the plain versions of both kernels; the launch
+    counts are each card group's own."""
+    import torch
+
+    from longcalld_torch.ops import band, wfa
+    from torch_helpers import SV_WIDTHS, sv_pairs
+
+    al = wfa.BatchAligner(use_device=True, device="cuda:0",
+                          device_min_cells=1)
+    plain = wfa.BatchAligner(use_device=True, device=torch.device("cpu"),
+                             device_min_cells=1)
+    rows = []
+    for w, pairs in sv_pairs(2026).items():
+        band.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = al._align_batch(pairs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = band.launch_counts()
+        t0 = time.perf_counter()
+        ref = plain._align_batch(pairs)
+        plain_wall = time.perf_counter() - t0
+        for r, q in zip(res, ref, strict=True):
+            if not (r.score == q.score
+                    and np.array_equal(r.cigar, q.cigar)
+                    and np.array_equal(r.pattern_alg, q.pattern_alg)
+                    and np.array_equal(r.text_alg, q.text_alg)):
+                raise AssertionError(f"_align_batch on the card differs from "
+                                     f"its plain path at w={w}")
+        if (al.n_dispatch, al.n_fallback) != (plain.n_dispatch,
+                                              plain.n_fallback):
+            raise AssertionError(f"_align_batch at w={w}: card dispatches/"
+                                 f"fallbacks {al.n_dispatch}/{al.n_fallback}"
+                                 f", plain {plain.n_dispatch}/"
+                                 f"{plain.n_fallback}")
+        B = SV_WIDTHS[w]
+        on_card = B <= 4096
+        if on_card != all(v > 0 for v in launches.values()) or (
+                not on_card and any(launches.values())):
+            raise AssertionError(f"_align_batch at B={B} launched "
+                                 f"{launches}")
+        row = {"w": w, "B": B, "launches": launches, "wall_s": wall,
+               "plain_wall_s": plain_wall, "fallbacks": al.n_fallback,
+               "scores": [int(r.score) for r in res]}
+        rows.append(row)
+        print(f"_align_batch on cuda:0: {json.dumps(row)}, equal to its "
+              "plain path", flush=True)
+    return rows
 
 
 def build_workload(d: str, seed: int = 2026, L: int = 2_000_000):
@@ -478,6 +587,38 @@ def check_vcf(body, fa):
             raise AssertionError(f"unexpected GT {gt} at {f[0]}:{pos}")
 
 
+def kernel_entries(krows, brows, bench, arows, path_launches):
+    """The ``kernels`` JSON list: per kernel the launch counts of each path
+    (``path_launches``: JSON key -> {kernel: count}), the time at phase
+    3's largest shape, per band width the phase 7 time at Lp = BAND_LP,
+    the bench-shape time and the _align_batch launches per band bucket."""
+    big = max(krows, key=lambda r: (r["Lp"], r["batch"]))
+    kernels = []
+    for name, src, ref, key in (
+            ("band_fwd", "longcalld_torch/csrc/band_fwd.cu",
+             "longcalld_tpu/ops/pallas_band.py:76", "fwd"),
+            ("band_bwd", "longcalld_torch/csrc/band_bwd.cu",
+             "longcalld_tpu/ops/pallas_band.py:355", "bwd")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": ref,
+            **{k: v[name] for k, v in path_launches.items()},
+            "max_abs_err": max(r[f"{key}_err"] for r in krows + brows),
+            "ms": big[f"{key}_ms"], "plain_ms": big[f"{key}_plain_ms"],
+            "bands": [{
+                "B": r["B"], "Lp": r["Lp"], "batch": r["batch"],
+                "ms": r[f"{key}_ms"], "plain_ms": r[f"{key}_plain_ms"],
+                "max_abs_err": max(q[f"{key}_err"] for q in brows
+                                   if q["B"] == r["B"])}
+                for r in brows if r["Lp"] == BAND_LP],
+            "bench_shape": {"B": bench["B"], "Lp": bench["Lp"],
+                            "batch": bench["batch"],
+                            "ms": bench[f"{key}_ms"],
+                            "cells_per_s": bench[f"{key}_cells_per_s"]},
+            "align_batch_launches": {str(r["B"]): r["launches"][name]
+                                     for r in arows}})
+    return kernels
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -498,11 +639,11 @@ def main() -> int:
     print(f"kernels built in {time.perf_counter() - t0:.2f} s "
           f"({kbuild.library_path()})", flush=True)
     for line in kbuild.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if any(w in line for w in ("entry function", "registers", "spill")):
             print(f"  nvcc: {line.strip()}")
 
     krows = check_kernels(KERNEL_SHAPES)
-    check_offband_walk()
+    check_offband_walk(256)
 
     # phase 4's contig stays for phase 6 (c); the directory's finalizer
     # removes it on any exit
@@ -617,20 +758,23 @@ def main() -> int:
           f"records; wall {mrep['wall_s']:.3f} s; jax in sys.modules: False",
           flush=True)
 
-    big = max(krows, key=lambda r: (r["Lp"], r["batch"]))
-    kernels = []
-    for name, src, ref, key in (
-            ("band_fwd", "longcalld_torch/csrc/band_fwd.cu",
-             "longcalld_tpu/ops/pallas_band.py:76", "fwd"),
-            ("band_bwd", "longcalld_torch/csrc/band_bwd.cu",
-             "longcalld_tpu/ops/pallas_band.py:355", "bwd")):
-        kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": ref,
-            "launches": forced["launches"][name],
-            "procs_launches": pdev["worker_launches"][name],
-            "mesh_launches": mrep["launches"][name],
-            "max_abs_err": max(r[f"{key}_err"] for r in krows),
-            "ms": big[f"{key}_ms"], "plain_ms": big[f"{key}_plain_ms"]})
+    # phase 7: the other band widths
+    t7 = time.perf_counter()
+    brows = check_kernels(BAND_SHAPES)
+    bench = bench_kernels()
+    walks = {b: check_offband_walk(b) for b in WALK_BANDS}
+    arows = run_align_batch()
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+    print(f"band widths: both kernels bit-equal at B={list(BANDS)}, "
+          f"{sum(r['escape'] for r in brows)} batches with an escape pair; "
+          f"walks off band {walks}; phase 7 took "
+          f"{time.perf_counter() - t7:.1f} s", flush=True)
+
+    kernels = kernel_entries(krows, brows, bench, arows, {
+        "launches": forced["launches"],
+        "procs_launches": pdev["worker_launches"],
+        "mesh_launches": mrep["launches"]})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

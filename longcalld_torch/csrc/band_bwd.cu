@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas kernel longcalld_tpu/ops/pallas_band.py:_bwd_rows_kernel
 // (entered through backward_resolve_pallas, pallas_band.py:451-495) with the
-// same contract, bit for bit:
+// same contract, bit for bit, at every band width the Pallas kernel takes
+// (B = 128 k, 128 <= B <= 4096):
 //   in : tbs (Lp+1, batch, B) uint8; plen, tlen, dlo (batch,) int32;
 //        finals (batch, 5) int32 in PERM order [I1, I2, D1, D2, M]
 //   out: packed (Lp, batch) int32 = op<<14 | min(n_ins, 16383) for rows
@@ -13,7 +14,8 @@
 // around gathers).  Every lane holds the same position and state, so
 // control flow is warp-uniform.  An insertion row collapses its chain to
 // the highest column <= entry whose extension bit is 0: the warp tests 32
-// columns per step and picks the stop with __ballot_sync / __ffs.
+// columns per step (at most B/32 steps) and picks the stop with
+// __ballot_sync / __ffs.
 //
 // Off-band state.  In the one-hot reference the position can fall off the
 // band: after an I chain that stops at b = 0 or finds no stop (the left
@@ -32,7 +34,6 @@
 
 namespace {
 
-constexpr int BAND = 256;
 constexpr int OFF = -1;
 constexpr int WARPS_PER_CTA = 4;
 constexpr unsigned FULL = 0xffffffffu;
@@ -44,7 +45,7 @@ band_bwd_kernel(const uint8_t* __restrict__ tbs,
                 const int32_t* __restrict__ dlo_a,
                 const int32_t* __restrict__ finals,
                 int32_t* __restrict__ packed, int32_t* __restrict__ b0,
-                int batch, int Lp) {
+                int batch, int B, int Lp) {
   const int lane = threadIdx.x & 31;
   const int k = blockIdx.x * WARPS_PER_CTA + (threadIdx.x >> 5);
   if (k >= batch) return;  // whole warp leaves together
@@ -59,15 +60,15 @@ band_bwd_kernel(const uint8_t* __restrict__ tbs,
   }
   const int s_final = (first + 1) % 5;
 
-  const size_t row_stride = (size_t)batch * BAND;
-  const uint8_t* col0 = tbs + (size_t)k * BAND;
+  const size_t row_stride = (size_t)batch * B;
+  const uint8_t* col0 = tbs + (size_t)k * B;
   int pos = OFF, s = 0;
   for (int r = 0; r < Lp; ++r) {
     const int i = Lp - r;
     int out = 0;
     if (i <= pl) {
       if (i == pl) {
-        pos = (b_final >= 0 && b_final < BAND) ? b_final : OFF;
+        pos = (b_final >= 0 && b_final < B) ? b_final : OFF;
         s = s_final;
       }
       const uint8_t* row = col0 + (size_t)i * row_stride;
@@ -76,7 +77,7 @@ band_bwd_kernel(const uint8_t* __restrict__ tbs,
       if (s == 3 || s == 4) {                     // D: extend or back to M
         const int ext = pos == OFF ? 0 : (row[pos] >> (s == 3 ? 5 : 6)) & 1;
         if (!ext) s = 0;
-        pos = (pos == OFF || pos + 1 >= BAND) ? OFF : pos + 1;
+        pos = (pos == OFF || pos + 1 >= B) ? OFF : pos + 1;
         op = 2;
       } else {
         if (s == 1 || s == 2) {                   // I: collapse the chain
@@ -107,16 +108,18 @@ band_bwd_kernel(const uint8_t* __restrict__ tbs,
 
 }  // namespace
 
+// B must be a multiple of 128 in [128, 4096] (the Pallas kernel's rule,
+// pallas_band.py:18); else cudaErrorInvalidValue.
 extern "C" int lcd_band_bwd(const void* tbs, const void* plen,
                             const void* tlen, const void* dlo,
                             const void* finals, void* packed, void* b0,
                             int batch, int B, int Lp, void* stream) {
-  if (B != BAND) return (int)cudaErrorInvalidValue;
+  if (B < 128 || B > 4096 || B % 128 != 0) return (int)cudaErrorInvalidValue;
   if (batch <= 0) return 0;
   const int ctas = (batch + WARPS_PER_CTA - 1) / WARPS_PER_CTA;
   band_bwd_kernel<<<ctas, 32 * WARPS_PER_CTA, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)tbs, (const int32_t*)plen, (const int32_t*)tlen,
       (const int32_t*)dlo, (const int32_t*)finals, (int32_t*)packed,
-      (int32_t*)b0, batch, Lp);
+      (int32_t*)b0, batch, B, Lp);
   return (int)cudaGetLastError();
 }

@@ -7,12 +7,15 @@ _backward_resolve :403-494).  Same contracts, bit for bit.
 
 Each entry point has two forms:
 * a hand-written CUDA kernel (csrc/band_fwd.cu, csrc/band_bwd.cu), built by
-  utils/kbuild.py, launched for CUDA tensors (B = 256 only, the one band
-  bucket the aligner sends to the device; ops/wfa.py keeps wider bands on
-  the host);
-* a plain PyTorch version (``*_plain``), taken for CPU tensors only.
+  utils/kbuild.py, launched for CUDA tensors at every band width the
+  Pallas kernels take: B a multiple of 128 from 128 to 4096 (the
+  aligner's routing sends only the B = 256 bucket from ``submit``;
+  ``BatchAligner._align_batch`` reaches the others);
+* a plain PyTorch version (``*_plain``), taken for CPU tensors only; it
+  takes any B.
 A CUDA tensor never falls back to the plain version: the wrapper launches
-the kernel or raises.  Each launch adds one to ``launch_counts()``.
+the kernel or raises (``ValueError`` for any other width, before the
+launch).  Each launch adds one to ``launch_counts()``.
 
 Source notes (what each kernel replaces, what bounds it on the card and
 what its design does about it) head the .cu files.
@@ -27,8 +30,10 @@ import torch
 from longcalld_torch.utils import kbuild
 
 BIG = 1 << 28
-KERNEL_BAND = 256
+# the band widths of the CUDA kernels: multiples of BAND_STEP up to BAND_MAX
+BAND_STEP, BAND_MAX = 128, 4096
 OFF = -1                      # traceback position that fell off the band
+OFF_LEFT, OFF_RIGHT = 1, 2    # the edge a plain walk fell off (off_edge)
 
 _count_lock = threading.Lock()
 _launches = {"band_fwd": 0, "band_bwd": 0}
@@ -63,9 +68,10 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
 
 
 def _check_band(B: int) -> None:
-    if B != KERNEL_BAND:
-        raise ValueError(f"the CUDA band kernels take B={KERNEL_BAND} "
-                         f"only, got B={B}")
+    if not (BAND_STEP <= B <= BAND_MAX and B % BAND_STEP == 0):
+        raise ValueError(f"the CUDA band kernels take B a multiple of "
+                         f"{BAND_STEP} from {BAND_STEP} to {BAND_MAX}, "
+                         f"got B={B}")
 
 
 # ---------------------------------------------------------------- forward
@@ -229,8 +235,10 @@ def backward_resolve(tbs, plen, tlen, dlo, finals, B: int, Lp: int):
 def backward_resolve_plain(tbs, plen, tlen, dlo, finals, B: int, Lp: int):
     """Plain PyTorch traceback: the CUDA kernel's scalar walk, vectorized
     over the batch (position and state per pair, ``OFF`` once the position
-    has fallen off the band).  Returns (packed, b0, went_off (batch,)
-    bool: which walks fell off the band)."""
+    has fallen off the band).  Returns (packed, b0, off_edge (batch,)
+    int8: 0 for a walk that stayed in the band, OFF_LEFT for one that fell
+    off column 0 (an I chain with no stop above it), OFF_RIGHT for one
+    that stepped past column B-1 (a D step))."""
     dev = tbs.device
     batch = tbs.shape[1]
     i64 = torch.int64
@@ -248,7 +256,7 @@ def backward_resolve_plain(tbs, plen, tlen, dlo, finals, B: int, Lp: int):
 
     pos = torch.full((batch,), OFF, dtype=i64, device=dev)
     s = torch.zeros(batch, dtype=i64, device=dev)
-    went_off = torch.zeros(batch, dtype=torch.bool, device=dev)
+    off_edge = torch.zeros(batch, dtype=torch.int8, device=dev)
     packed = torch.zeros((Lp, batch), dtype=torch.int32, device=dev)
 
     def under(row, p):                    # byte under position p (0 if OFF)
@@ -282,7 +290,9 @@ def backward_resolve_plain(tbs, plen, tlen, dlo, finals, B: int, Lp: int):
         pos_D = torch.where((pos == OFF) | (pos + 1 >= B), OFF, pos + 1)
 
         new_pos = torch.where(is_D, pos_D, pos1)
-        went_off |= act & (pos != OFF) & (new_pos == OFF)
+        fell = act & (pos != OFF) & (new_pos == OFF)
+        off_edge = torch.where(fell, torch.where(is_D, OFF_RIGHT, OFF_LEFT),
+                               off_edge).to(torch.int8)
         pos = torch.where(act, new_pos, pos)
         s = torch.where(act, torch.where(is_D, s_D, src), s)
         n_ins = torch.where(act & is_I, n_ins_I, 0)
@@ -290,4 +300,4 @@ def backward_resolve_plain(tbs, plen, tlen, dlo, finals, B: int, Lp: int):
         packed[r] = ((op << 14) | n_ins.clamp_max((1 << 14) - 1)).to(
             torch.int32)
     b0 = torch.where(pos == OFF, 0, pos).to(torch.int32)
-    return packed, b0, went_off
+    return packed, b0, off_edge

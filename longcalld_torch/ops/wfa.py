@@ -298,7 +298,8 @@ class BatchAligner:
                 self.device, self.x, self.o1, self.e1, self.o2, self.e2)
         # size-based routing: small pairs run on the exact C aligner; pairs
         # needing a band bucket past 512 also stay on the host (wfa.py:
-        # 659-671), so only B = 256 reaches the device
+        # 659-671), so only B = 256 reaches the device from here (the
+        # kernels take every B up to 4096: _align_batch reaches them)
         small = [k for k, (p, t) in enumerate(pairs)
                  if len(p) * len(t) <= self.device_min_cells
                  or _bucket(abs(len(t) - len(p)) + 2 * self.band_pad,
@@ -374,6 +375,9 @@ class BatchAligner:
         return align_affine2p(p, t, self.x, self.o1, self.e1, self.o2,
                               self.e2, left_align=False)
 
+    def _align_batch(self, pairs):
+        return self._collect_batch(self._submit_batch(pairs))
+
     def _submit_batch(self, pairs: Sequence[Tuple[np.ndarray, np.ndarray]]):
         n_real = len(pairs)
         real_diff = max(abs(len(t) - len(p)) for p, t in pairs)
@@ -392,8 +396,12 @@ class BatchAligner:
         Lp = _bucket(int(plens.max()))
         # degenerate/oversize pairs go straight to host (the 1<<17 row cap
         # is the event encoding's row<<14 int32 limit)
-        host_mask = (plens == 0) | (tlens == 0) | (B > 4096) \
+        host_mask = (plens == 0) | (tlens == 0) | (B > band.BAND_MAX) \
             | (plens > (1 << 17))
+        if host_mask[:n_real].all():
+            # nothing for the device (a group wider than the kernels
+            # take): every pair takes the exact host aligner
+            return (pairs, n_real, None, host_mask, Lp, None, None)
         m_n = tlens - plens
         dlo = np.minimum(0, m_n) - (B - np.abs(m_n)) // 2
         P = np.full((n, Lp), 4, dtype=np.int8)
@@ -416,6 +424,8 @@ class BatchAligner:
 
     def _collect_batch(self, handle) -> List[AlnResult]:
         pairs, n_real, dlo, host_mask, Lp, evs_d, meta_d = handle
+        if meta_d is None:
+            return [self._host_exact(p, t) for p, t in pairs[:n_real]]
         meta = meta_d[:n_real].cpu().numpy()
         # meta[:, 3] (n_ev) bounds the walk width; -1 marks unencodable
         # pairs, which take the host fallback anyway

@@ -23,6 +23,7 @@ from longcalld_torch.ops.convert import from_numpy  # noqa: E402
 from longcalld_tpu.ops import wfa  # noqa: E402
 from longcalld_tpu.ops.pallas_band import (backward_resolve_pallas,  # noqa
                                            banded_dp_pallas)
+from torch_helpers import random_walk_inputs  # noqa: E402
 
 X, O1, E1, O2, E2 = 4, 4, 2, 24, 1
 CPU = torch.device("cpu")
@@ -122,8 +123,8 @@ def _check_backward(tbs, finals, arrays, B, Lp):
     np.testing.assert_array_equal(packed_t.numpy(), packed_l)
     np.testing.assert_array_equal(b0_t.numpy(), np.asarray(b0_l))
     np.testing.assert_array_equal(b0_t.numpy(), np.asarray(b0_p))
-    _, _, went_off = band.backward_resolve_plain(*targs, B, Lp)
-    return went_off.numpy()
+    _, _, off_edge = band.backward_resolve_plain(*targs, B, Lp)
+    return off_edge.numpy()
 
 
 @pytest.mark.parametrize("seed,batch,B,Lp", [
@@ -131,6 +132,9 @@ def _check_backward(tbs, finals, arrays, B, Lp):
     (1, 8, 128, 96),
     (2, 16, 256, 64),
     (3, 8, 256, 128),
+    (4, 8, 384, 64),
+    (5, 8, 1024, 64),
+    (6, 4, 4096, 32),
 ])
 def test_band_matches_jax(seed, batch, B, Lp):
     rng = np.random.default_rng(seed)
@@ -139,7 +143,7 @@ def test_band_matches_jax(seed, batch, B, Lp):
     _check_backward(tbs, finals, arrays, B, Lp)
 
 
-@pytest.mark.parametrize("B,Lp", [(128, 160), (256, 320)])
+@pytest.mark.parametrize("B,Lp", [(128, 160), (256, 320), (1024, 1280)])
 def test_band_escape_pair(B, Lp):
     """A pair whose optimal path leaves the band: outputs stay bit-equal,
     and the band-edge bound flags it for the host fallback
@@ -153,34 +157,35 @@ def test_band_escape_pair(B, Lp):
     assert int(edge[-1]) < int(fin[-1].min()), "escape pair stayed in band"
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_walk_on_random_traceback_bytes(seed):
+@pytest.mark.parametrize("seed,B", [
+    pytest.param(0, 128, id="0"), pytest.param(1, 128, id="1"),
+    pytest.param(2, 128, id="2"), pytest.param(3, 1024, id="3-B1024"),
+    pytest.param(4, 384, id="4-B384"), pytest.param(5, 4096, id="5-B4096"),
+])
+def test_walk_on_random_traceback_bytes(seed, B):
     """Random traceback bytes and finals drive the walk through every
-    branch and off either band edge, which real DP output does only in
-    unreachable (all-BIG) regions; the one-hot forms encode the off-band
-    position as an all-zero vector.  The port must match both JAX forms
-    bit for bit, and must actually have gone off band."""
+    branch and off both band edges (tests/torch_helpers.py:
+    random_walk_inputs); the one-hot forms encode the off-band position
+    as an all-zero vector.  The port must match both JAX forms bit for
+    bit, and walks must actually have left through each edge."""
     rng = np.random.default_rng(seed)
-    B, Lp, batch = 128, 64, 16
-    src = rng.integers(0, 5, (Lp + 1, batch, B))
-    bits = rng.random((Lp + 1, batch, B, 4)) < np.array([0.9, 0.9, 0.6, 0.6])
-    tbs = (src | (bits[..., 0] << 3) | (bits[..., 1] << 4)
-           | (bits[..., 2] << 5) | (bits[..., 3] << 6)).astype(np.uint8)
-    plen = rng.integers(0, Lp + 1, batch).astype(np.int32)
-    tlen = np.maximum(plen + rng.integers(-20, 20, batch), 0).astype(np.int32)
-    dlo = (np.minimum(0, tlen - plen)
-           - (B - np.abs(tlen - plen)) // 2).astype(np.int32)
-    dlo[:3] += np.array([-B, B, 3], dtype=np.int32)   # b_final off the band
-    finals = rng.integers(0, 50, (batch, 5)).astype(np.int32)
-    finals[4] = 7                                      # ties: first wins
-    went_off = _check_backward(tbs, finals, (None, None, plen, tlen, dlo),
-                               B, Lp)
-    assert went_off.any()
+    tbs, plen, tlen, dlo, finals = random_walk_inputs(rng, B, 64, 16)
+    off_edge = _check_backward(tbs, finals, (None, None, plen, tlen, dlo),
+                               B, 64)
+    assert (off_edge == band.OFF_LEFT).any()
+    assert (off_edge == band.OFF_RIGHT).any()
 
 
-def test_cuda_kernels_refuse_other_bands():
-    """The CUDA kernels are specialised on B=256; other widths are refused
-    before any launch (the plain versions take any B on CPU)."""
-    with pytest.raises(ValueError, match="B=256"):
-        band._check_band(128)
-    band._check_band(256)
+@pytest.mark.parametrize("B,ok", [
+    (128, True), (384, True), (1024, True), (4096, True),
+    (64, False), (192, False), (4224, False), (5128, False),
+])
+def test_cuda_kernels_refuse_other_bands(B, ok):
+    """The CUDA kernels take every band width of the Pallas kernels, B a
+    multiple of 128 from 128 to 4096; other widths are refused before any
+    launch (the plain versions take any B on CPU)."""
+    if ok:
+        band._check_band(B)
+    else:
+        with pytest.raises(ValueError, match=f"got B={B}"):
+            band._check_band(B)

@@ -22,6 +22,7 @@ from longcalld_tpu.ops import wfa as jwfa  # noqa: E402
 from longcalld_tpu.ops.affine_align import align_affine2p  # noqa: E402
 
 from test_torch_band import _build  # noqa: E402
+from torch_helpers import SV_WIDTHS, sv_pairs  # noqa: E402
 
 CPU = torch.device("cpu")
 X, O1, E1, O2, E2 = 4, 4, 2, 24, 1
@@ -216,3 +217,48 @@ def test_get_aligner_keys_on_device_and_threshold():
             "cells_retry_host"}
     finally:
         twfa._ALIGNER_CACHE.clear()
+
+
+def _jax_reference(w, pairs):
+    """The pairs that go through the JAX package's _align_batch.  Past the
+    widest bucket only the insertion: the deletion's 5900 bp pattern puts
+    the JAX device call (made there for host-masked groups too) at 32768
+    rows, ~90 s on CPU, and JAX returns the host aligner's result for a
+    host-masked pair, which the align_affine2p comparison covers."""
+    return pairs if SV_WIDTHS[w] <= 4096 else pairs[:1]
+
+
+@pytest.mark.parametrize("w", sorted(SV_WIDTHS))
+def test_align_batch_wide_bands(w):
+    """BatchAligner._align_batch on SV-like pairs (a w bp insertion and a
+    w bp deletion against 900 bp): band buckets 1024 and 4096, which the
+    routing of submit() keeps on the host, and 5128, past the widest
+    bucket, whose group goes to the host aligner whole.  The port equals
+    the JAX package's _align_batch and the host aligner, with the same
+    fallbacks (the 1500 bp deletion's 1500 D rows overflow the 512-event
+    buffer, so it takes the host ladder in both packages)."""
+    pairs = sv_pairs(3)[w]
+    tal, jal = _aligners()
+    res_t = tal._align_batch(pairs)
+    _same(res_t, [align_affine2p(p, t, left_align=False) for p, t in pairs])
+    ref = _jax_reference(w, pairs)
+    _same(res_t[:len(ref)], jal._align_batch(ref))
+    assert tal.n_fallback == jal.n_fallback
+    assert all(abs(r.score) >= w for r in res_t)
+
+
+def test_align_batch_past_widest_bucket_makes_no_device_call(monkeypatch):
+    """A group whose band bucket is past 4096 is host-masked whole: no call
+    of align_device, and still the JAX package's outputs."""
+    def boom(*a, **k):
+        raise AssertionError("align_device called for a host-only group")
+    monkeypatch.setattr(twfa, "align_device", boom)
+    w = max(SV_WIDTHS)
+    assert SV_WIDTHS[w] > 4096
+    pairs = sv_pairs(4)[w]
+    tal, jal = _aligners()
+    res_t = tal._align_batch(pairs)
+    _same(res_t, [align_affine2p(p, t, left_align=False) for p, t in pairs])
+    ref = _jax_reference(w, pairs)
+    _same(res_t[:len(ref)], jal._align_batch(ref))
+    assert tal.n_dispatch == 0

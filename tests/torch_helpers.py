@@ -1,6 +1,7 @@
 """Helpers shared by the port's tests (tests/test_torch_*.py) and
-chip_smoke.py: VCF bodies, a spy on run_call's pool dispatch, and the
-seeded synthetic contig they call."""
+chip_smoke.py: VCF bodies, a spy on run_call's pool dispatch, the seeded
+synthetic contig they call, random traceback bytes for the band walk and
+seeded SV-like pairs for the wide band buckets."""
 
 import contextlib
 import os
@@ -90,3 +91,60 @@ def build_contig(d, seed, length, coverage=20, read_len=10_000,
                               read_len=read_len, err=0.003, seed=seed + 1,
                               **bam_kw)
     return fa, bam, n_reads, len(truth)
+
+
+def random_walk_inputs(rng, B, Lp, n, spread=20):
+    """Inputs of the band walk (tbs, plen, tlen, dlo, finals) made of
+    random traceback bytes and finals.  Extension bits are set often, so
+    the walk takes every branch and falls off either band edge, which real
+    DP output does only in unreachable (all-BIG) regions.  Pairs 0 and 1
+    end outside the band, pair 2 near its middle, pair 4 has tied finals
+    (the first minimum wins).  Then two blocks of q = max(2, (n-5) // 3)
+    full-length pairs: the first ends at b_final in {0, 1, 2} in an I
+    state, so it leaves through the left edge (at b_final = 0 always), the
+    second at b_final in {B-1, B-2, B-3} in a D state, so it leaves through
+    the right edge (at B-1 always).  Needs n >= 9."""
+    src = rng.integers(0, 5, (Lp + 1, n, B), dtype=np.uint8)
+    bits = rng.integers(0, 10, (Lp + 1, n, B, 4), dtype=np.uint8) \
+        < np.array([9, 9, 6, 6], dtype=np.uint8)
+    tbs = src
+    for k in range(4):
+        tbs |= bits[..., k].astype(np.uint8) << (3 + k)
+    q = max(2, (n - 5) // 3)
+    left, right = np.arange(5, 5 + q), np.arange(5 + q, 5 + 2 * q)
+    plen = rng.integers(0, Lp + 1, n).astype(np.int32)
+    plen[5:5 + 2 * q] = Lp
+    tlen = np.maximum(plen + rng.integers(-spread, spread, n),
+                      0).astype(np.int32)
+    dlo = (np.minimum(0, tlen - plen)
+           - (B - np.abs(tlen - plen)) // 2).astype(np.int32)
+    dlo[:3] += np.array([-B, B, 3], dtype=np.int32)
+    finals = rng.integers(0, 50, (n, 5)).astype(np.int32)
+    finals[4] = 7
+    # PERM order [I1, I2, D1, D2, M]: the minimum picks the first state
+    for idx, b_final, first in ((left, left % 3, left % 2),
+                                (right, B - 1 - right % 3, 2 + right % 2)):
+        dlo[idx] = tlen[idx] - plen[idx] - b_final
+        finals[idx] = 9
+        finals[idx, first] = 1
+    return tbs, plen, tlen, dlo, finals
+
+
+# SV sizes of sv_pairs: with BatchAligner's band_pad of 64 their band
+# buckets are 1024, 4096 and 5128 (past 4096: the kernels do not take it)
+SV_WIDTHS = {500: 1024, 1500: 4096, 5000: 5128}
+
+
+def sv_pairs(seed, n=900):
+    """Seeded SV-like pairs, one group per width w of SV_WIDTHS: an n bp
+    pattern against a text with a w bp insertion, and the same two
+    sequences swapped (a w bp deletion)."""
+    rng = np.random.default_rng(seed)
+    groups = {}
+    for w in SV_WIDTHS:
+        p = rng.integers(0, 4, n).astype(np.uint8)
+        a = int(rng.integers(n // 4, 3 * n // 4))
+        t = np.concatenate([p[:a], rng.integers(0, 4, w).astype(np.uint8),
+                            p[a:]])
+        groups[w] = [(p, t), (t, p)]
+    return groups
