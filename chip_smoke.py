@@ -5,10 +5,17 @@
 Phases (any failure raises and exits non-zero; no phase catches its own):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
   2. build the hand-written kernels (longcalld_torch/csrc/*.cu) with nvcc;
-  3. each kernel against its plain PyTorch version on the card, at the
-     main path's band width B=256, Lp in {256, 1024, 4096}, batch in
-     {64, 512}, with plen == 0 dummies and a band-escape pair in every
-     batch: outputs must be bit-equal (tolerance 0, all are integers);
+  3. (a) each kernel against its plain PyTorch version on the card, at
+     the main path's band width B=256, Lp in {256, 1024, 4096}, batch in
+     {64, 512}, plus batch 2048 at Lp 256 and 1024, and Lp 1024 at
+     batches 301 and 515,
+     which the pairs per CTA of band_fwd's warp design do not divide, with
+     plen == 0 dummies and a band-escape pair in every batch: outputs must
+     be bit-equal (tolerance 0, all are integers); each shape's CUDA-event
+     ms beside its bound (ops/band.py:fwd_bound, bwd_bound); (b) every
+     configuration of band_fwd's warp design (warps per pair x pairs per
+     CTA, at B 128, 256, 384 and 512) against the plain version at Lp 1024,
+     batch 67, bit-equal;
   4. the main path: a seeded 2 Mb diploid contig (four 500 kb windows,
      30x 15 kb HiFi-like reads) called three times through the port's
      run_call -- calibrated routing threshold, forced device
@@ -47,8 +54,11 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      4096 and 5128), equal to the same aligner on CPU tensors (the plain
      versions), with both kernels launched at 1024 and 4096 and nothing
      launched for the 5128 group.
-The last lines are the card line, a JSON line of the kernels (with a
-``bands`` list per kernel), and {"ok": true, "device": {...}}.
+Every phase fails if jax or any module of the JAX package (longcalld_tpu)
+is in sys.modules, and its last line says so.
+The last lines are the card line, a JSON line of the kernels (with
+``shapes`` and ``bands`` lists per kernel), and {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -65,11 +75,14 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# scoring of the HiFi preset (longcalld_tpu/config.py)
+# scoring of the HiFi preset (longcalld_torch/config.py)
 X, O1, E1, O2, E2 = 6, 6, 2, 24, 1
 # (B, Lp, batch) of the kernel checks: phase 3 at the main path's B = 256,
 # phase 7 at every other width the Pallas kernels take
-KERNEL_SHAPES = [(256, Lp, n) for Lp in (256, 1024, 4096) for n in (64, 512)]
+KERNEL_SHAPES = ([(256, Lp, n) for Lp in (256, 1024, 4096) for n in (64, 512)]
+                 + [(256, 256, 2048)]
+                 + [(256, 1024, n) for n in (2048, 301, 515)])
+CONFIG_SHAPE = (1024, 67)    # (Lp, batch) of phase 3 (b)
 BANDS = (128, 384, 1024, 1152, 2048, 4096)
 BAND_LP = 2048               # the Lp of each width's timing in the JSON line
 BAND_SHAPES = ([(b, Lp, 64) for b in BANDS for Lp in (256, BAND_LP)]
@@ -80,6 +93,24 @@ WINDOW = 500_000             # CallOpts' default window
 POOL_PROCS = 8               # phase 5 workers (capped by the host's cores)
 MESH_SHARDS = 4              # phase 6 mesh size
 EM_SHAPES = [(2048, 2048), (8192, 8192)]   # phase 6 (a): (R, V) buckets
+
+
+FOREIGN = ("jax", "jaxlib", "longcalld_tpu")
+
+
+def guard(phase: str) -> str:
+    """Raise if jax or the JAX package was imported; else the line that
+    says so."""
+    bad = {}
+    for m in sys.modules:
+        top = m.split(".")[0]
+        if top in FOREIGN:
+            bad[top] = bad.get(top, 0) + 1
+    if bad:
+        raise AssertionError(f"phase {phase}: imported " + ", ".join(
+            f"{k} ({n} modules)" for k, n in sorted(bad.items())))
+    return (f"phase {phase}: jax in sys.modules: False; longcalld_tpu in "
+            "sys.modules: False")
 
 
 def nvidia_smi(query: str) -> str:
@@ -141,6 +172,51 @@ def make_batch(rng, n, Lp, B):
     return (P, Tband, plens, tlens, dlo), escape
 
 
+# What the bounds assume (PERF.md): HBM at the H100 SXM's 3.35 TB/s
+# (NVIDIA data sheet); int32 issue of 64 lanes per SM per clock (sm_90) at
+# the card's maximum SM clock; a DP cell of band_fwd costs FWD_OPS_PER_CELL
+# int32 operations (the column body of csrc/band_fwd.cu:band_fwd_warp, an
+# add-and-min counted once) and a row of band_bwd's walk BWD_OPS_PER_ROW.
+HBM_BYTES_PER_S = 3.35e12
+INT32_LANES_PER_SM = 64
+FWD_OPS_PER_CELL = 36
+BWD_OPS_PER_ROW = 12
+
+
+def card_int32_rate() -> float:
+    """int32 operations per second of the card at its maximum SM clock."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
+    return sms * INT32_LANES_PER_SM * clock_hz
+
+
+def bound_ms(ops: float, nbytes: float, int_rate: float):
+    """The least time (ms) for ``ops`` int32 operations moving ``nbytes``,
+    and which of the two binds."""
+    t_ops, t_bytes = ops / int_rate, nbytes / HBM_BYTES_PER_S
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
+
+
+def fwd_bound(B, Lp, n, int_rate):
+    """band_fwd: every one of the (Lp, batch, B) cells is computed (the
+    traceback bytes of every row are outputs); inputs P, Tband and the
+    three lengths read once, tbs, finals and edge_min written once."""
+    nbytes = n * Lp + n * (Lp + B) + 12 * n + (Lp + 1) * n * B + 24 * n
+    return bound_ms(n * Lp * B * FWD_OPS_PER_CELL, nbytes, int_rate)
+
+
+def bwd_bound(plen, Lp, n, int_rate):
+    """band_bwd: the walk visits rows plen..1 of each pair and reads one
+    traceback byte a row; it reads finals and lengths and writes packed
+    (Lp, batch) int32 and b0 once."""
+    walked = int(np.asarray(plen).sum())
+    nbytes = walked + 32 * n + 4 * n * Lp + 4 * n
+    return bound_ms(walked * BWD_OPS_PER_ROW, nbytes, int_rate)
+
+
 def cuda_ms(fn, reps):
     import torch
     fn()
@@ -164,6 +240,7 @@ def check_kernels(shapes, plain_reps=1):
 
     dev = torch.device("cuda:0")
     rng = np.random.default_rng(1234)
+    int_rate = card_int32_rate()
     rows = []
     for B, Lp, n in shapes:
         arrays, escape = make_batch(rng, n, Lp, B)
@@ -193,8 +270,11 @@ def check_kernels(shapes, plain_reps=1):
                                  f"at B={B} Lp={Lp} batch={n}: max |diff| "
                                  f"{err_b}")
         reps = max(2, min(20, 40960 // Lp))
+        fb, fb_by = fwd_bound(B, Lp, n, int_rate)
+        bb, bb_by = bwd_bound(arrays[2], Lp, n, int_rate)
         row = {
             "B": B, "Lp": Lp, "batch": n, "escape": escape,
+            "config": list(band.band_fwd_config(B, n, band.sm_count(dev))),
             "fwd_ms": cuda_ms(lambda: band.banded_dp(*args, *dp), reps),
             "fwd_plain_ms": cuda_ms(lambda: band.banded_dp_plain(*args, *dp),
                                     plain_reps),
@@ -202,14 +282,50 @@ def check_kernels(shapes, plain_reps=1):
             "bwd_plain_ms": cuda_ms(
                 lambda: band.backward_resolve_plain(*bargs), plain_reps),
             "fwd_err": err_f, "bwd_err": err_b,
+            "fwd_bound_ms": fb, "fwd_bound_by": fb_by,
+            "bwd_bound_ms": bb, "bwd_bound_by": bb_by,
         }
         rows.append(row)
         print(f"kernel B={B} Lp={Lp} batch={n}: band_fwd "
-              f"{row['fwd_ms']:.3f} ms "
-              f"(plain {row['fwd_plain_ms']:.1f} ms), band_bwd "
-              f"{row['bwd_ms']:.3f} ms (plain {row['bwd_plain_ms']:.1f} ms),"
-              " bit-equal", flush=True)
+              f"{row['fwd_ms']:.3f} ms (warps per pair, pairs per CTA "
+              f"{tuple(row['config'])}; bound {fb:.3f} ms, {fb_by}; plain "
+              f"{row['fwd_plain_ms']:.1f} ms), band_bwd {row['bwd_ms']:.3f} "
+              f"ms (bound {bb:.4f} ms, {bb_by}; plain "
+              f"{row['bwd_plain_ms']:.1f} ms), bit-equal", flush=True)
     return rows
+
+
+def check_configs():
+    """Phase 3 (b): every configuration of band_fwd's warp design (each
+    instantiated warps-per-pair count, with one pair per CTA and with as
+    many as a CTA takes) against the plain version, bit-equal."""
+    import torch
+
+    from longcalld_torch.ops import band
+    from longcalld_torch.ops.convert import from_numpy
+
+    dev = torch.device("cuda:0")
+    rng = np.random.default_rng(4321)
+    Lp, n = CONFIG_SHAPE
+    checked = []
+    for B, wpps in sorted(band.WARP_CONFIGS.items()):
+        arrays, _ = make_batch(rng, n, Lp, B)
+        args = from_numpy(arrays, dev)
+        dp = (B, Lp, X, O1, E1, O2, E2)
+        ref = band.banded_dp_plain(*args, *dp)
+        for wpp in wpps:
+            for ppc in sorted({1, band.MAX_GROUP_WARPS // wpp}):
+                got = band.banded_dp(*args, *dp, config=(wpp, ppc))
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                    raise AssertionError(
+                        f"band_fwd with {wpp} warps per pair and {ppc} pairs "
+                        f"per CTA differs from its plain version at B={B}")
+                checked.append((B, wpp, ppc))
+    print(f"band_fwd configurations (B, warps per pair, pairs per CTA) "
+          f"bit-equal to the plain version at Lp={Lp}, batch={n}: {checked}",
+          flush=True)
+    return checked
 
 
 def check_offband_walk(B, Lp=256, n=64):
@@ -338,10 +454,10 @@ def run_main_path(fa, bam):
     """The port's run_call three ways; returns (VCF bodies, reports)."""
     import torch
 
-    from longcalld_tpu.config import CallOpts
-    from longcalld_tpu.utils import counters
+    from longcalld_torch.config import CallOpts
     from longcalld_torch.core.pipeline import run_call
     from longcalld_torch.ops import band, phase_kernel, wfa
+    from longcalld_torch.utils import counters
     from torch_helpers import vcf_body
 
     configs = [("calibrated", dict(use_device=True)),
@@ -367,6 +483,7 @@ def run_main_path(fa, bam):
         reports[name] = {
             "wall_s": wall, "records": n_rec,
             "launches": band.launch_counts(),
+            "launch_shapes": band.launch_shapes(),
             "phase_cuda_calls": phase_kernel.cuda_calls(),
             "device_min_cells": al.device_min_cells if kw["use_device"]
             else None,
@@ -409,10 +526,10 @@ def run_pool(fa, bam, hp):
     workers, and in-process host-only; returns (VCF bodies, reports)."""
     import torch
 
-    from longcalld_tpu.config import CallOpts
-    from longcalld_tpu.utils import counters
+    from longcalld_torch.config import CallOpts
     from longcalld_torch.core import pipeline, procpool
     from longcalld_torch.ops import band, phase_kernel, wfa
+    from longcalld_torch.utils import counters
     from torch_helpers import pool_calls, vcf_body
 
     configs = [("device_workers", hp, dict(procs_use_device=True,
@@ -540,7 +657,7 @@ def run_mesh_call(fa, bam, mesh):
     contig; returns (VCF body, report)."""
     import torch
 
-    from longcalld_tpu.config import CallOpts
+    from longcalld_torch.config import CallOpts
     from longcalld_torch.core.pipeline import run_call
     from longcalld_torch.ops import band, phase_kernel, wfa
     from torch_helpers import vcf_body
@@ -568,7 +685,7 @@ def run_mesh_call(fa, bam, mesh):
 def check_vcf(body, fa):
     """Structural check of the records: sorted positions, REF bases that
     match the FASTA, a diploid GT."""
-    from longcalld_tpu.io.fasta import FastaFile
+    from longcalld_torch.io.fasta import FastaFile
     fasta = FastaFile(fa)
     nt = "ACGTN"
     last = 0
@@ -587,11 +704,15 @@ def check_vcf(body, fa):
             raise AssertionError(f"unexpected GT {gt} at {f[0]}:{pos}")
 
 
-def kernel_entries(krows, brows, bench, arows, path_launches):
+def kernel_entries(krows, brows, bench, arows, path_launches, path_shapes):
     """The ``kernels`` JSON list: per kernel the launch counts of each path
-    (``path_launches``: JSON key -> {kernel: count}), the time at phase
-    3's largest shape, per band width the phase 7 time at Lp = BAND_LP,
-    the bench-shape time and the _align_batch launches per band bucket."""
+    (``path_launches``: JSON key -> {kernel: count}), the main path's
+    launches by "B,Lp,batch" (``path_shapes``), the time and bound at
+    phase 3's largest shape (no PyTorch call computes either kernel's
+    function, so ``library_ms`` is null), every phase 3 shape's time,
+    bound and share of it, per band width the phase 7 time at Lp =
+    BAND_LP, the bench-shape time and the _align_batch launches per band
+    bucket."""
     big = max(krows, key=lambda r: (r["Lp"], r["batch"]))
     kernels = []
     for name, src, ref, key in (
@@ -602,8 +723,19 @@ def kernel_entries(krows, brows, bench, arows, path_launches):
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": ref,
             **{k: v[name] for k, v in path_launches.items()},
+            "launch_shapes": path_shapes[name],
             "max_abs_err": max(r[f"{key}_err"] for r in krows + brows),
             "ms": big[f"{key}_ms"], "plain_ms": big[f"{key}_plain_ms"],
+            "bound_ms": big[f"{key}_bound_ms"],
+            "bound_by": big[f"{key}_bound_by"], "library_ms": None,
+            "shape": {"B": big["B"], "Lp": big["Lp"], "batch": big["batch"]},
+            "shapes": [{
+                "B": r["B"], "Lp": r["Lp"], "batch": r["batch"],
+                **({"config": r["config"]} if key == "fwd" else {}),
+                "ms": r[f"{key}_ms"], "bound_ms": r[f"{key}_bound_ms"],
+                "bound_by": r[f"{key}_bound_by"],
+                "share": r[f"{key}_bound_ms"] / r[f"{key}_ms"]}
+                for r in krows],
             "bands": [{
                 "B": r["B"], "Lp": r["Lp"], "batch": r["batch"],
                 "ms": r[f"{key}_ms"], "plain_ms": r[f"{key}_plain_ms"],
@@ -633,6 +765,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, device {kind}", flush=True)
+    print(guard("1"), flush=True)
 
     t0 = time.perf_counter()
     kbuild.load()
@@ -641,9 +774,12 @@ def main() -> int:
     for line in kbuild.build_log.splitlines():
         if any(w in line for w in ("entry function", "registers", "spill")):
             print(f"  nvcc: {line.strip()}")
+    print(guard("2"), flush=True)
 
     krows = check_kernels(KERNEL_SHAPES)
+    check_configs()
     check_offband_walk(256)
+    print(guard("3"), flush=True)
 
     # phase 4's contig stays for phase 6 (c); the directory's finalizer
     # removes it on any exit
@@ -672,11 +808,9 @@ def main() -> int:
         raise AssertionError("phasing EM never ran on CUDA in the forced run")
     if reports["host"]["launches"] != {"band_fwd": 0, "band_bwd": 0}:
         raise AssertionError("host-only run launched a kernel")
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
     print(f"VCF bodies byte-equal across calibrated/forced/host: "
-          f"{len(bodies['host'])} records; jax in sys.modules: False",
-          flush=True)
+          f"{len(bodies['host'])} records", flush=True)
+    print(guard("4"), flush=True)
 
     mode = nvidia_smi("compute_mode")
     print(f"compute mode: {mode}; os.cpu_count(): {os.cpu_count()}",
@@ -726,16 +860,14 @@ def main() -> int:
         raise AssertionError("host-only workers ran device work")
     if pseq["cells_device"] != 0:
         raise AssertionError("the host-only in-process run ran device work")
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
     print(f"pool: VCF bodies byte-equal across device workers, host "
           f"workers and in-process: {len(pbodies['host_workers'])} records; "
           f"walls {pdev['wall_s']:.3f} s (device workers) / "
           f"{phost['wall_s']:.3f} s (host workers) / {pseq['wall_s']:.3f} s "
           f"(in-process, host only); device cells in {len(busy)} workers; card "
           f"memory in use {pdev['card_mem_before_mib']:.0f} MiB before, "
-          f"{pdev['peak_card_mem_mib']:.0f} MiB at peak; jax in "
-          "sys.modules: False", flush=True)
+          f"{pdev['peak_card_mem_mib']:.0f} MiB at peak", flush=True)
+    print(guard("5"), flush=True)
 
     mesh = phase_mesh()
     print(f"mesh: {mesh} ({torch.cuda.device_count()} cards visible)",
@@ -752,11 +884,9 @@ def main() -> int:
     if mrep["phase_sharded_calls"] <= 0 or mrep["phase_cuda_calls"] <= 0:
         raise AssertionError("the sharded EM never ran on CUDA in the mesh "
                              "run")
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
     print(f"mesh call: VCF body byte-equal to host only: {len(mbody)} "
-          f"records; wall {mrep['wall_s']:.3f} s; jax in sys.modules: False",
-          flush=True)
+          f"records; wall {mrep['wall_s']:.3f} s", flush=True)
+    print(guard("6"), flush=True)
 
     # phase 7: the other band widths
     t7 = time.perf_counter()
@@ -764,17 +894,16 @@ def main() -> int:
     bench = bench_kernels()
     walks = {b: check_offband_walk(b) for b in WALK_BANDS}
     arows = run_align_batch()
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
     print(f"band widths: both kernels bit-equal at B={list(BANDS)}, "
           f"{sum(r['escape'] for r in brows)} batches with an escape pair; "
           f"walks off band {walks}; phase 7 took "
           f"{time.perf_counter() - t7:.1f} s", flush=True)
+    print(guard("7"), flush=True)
 
     kernels = kernel_entries(krows, brows, bench, arows, {
         "launches": forced["launches"],
         "procs_launches": pdev["worker_launches"],
-        "mesh_launches": mrep["launches"]})
+        "mesh_launches": mrep["launches"]}, forced["launch_shapes"])
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,14 @@
-"""Noisy-region re-assembly loop: the port of longcalld_tpu/core/noisy.py
-(sort_noisy_regs, fuse_requests, drive_generators :27-83,
-process_noisy_regions :86-128).  Every region's engine is a coroutine that
-yields alignment requests; all regions of a window run in lockstep rounds
-whose requests fuse into one submit of the port's aligner
-(longcalld_torch.ops.wfa).  Merges apply in deterministic region order,
-then phasing re-runs through the port's assign_haplotypes.
+"""Noisy-region re-assembly driver.
+
+Re-implements the outer loop of collect_var_main's noisy-region stage
+(reference/src/collect_var.c:2947-2977) with a TPU-first twist: every
+region's engine (core.consensus.collect_noisy_vars1) is a coroutine that
+yields pairwise-alignment requests, and this driver runs all regions of a
+window in lockstep rounds, fusing their requests into a handful of large
+batched device calls per round.  Variant/profile merges are applied in
+deterministic region order once a wave completes, then phasing re-runs —
+matching the reference's sequential semantics (regions are disjoint genomic
+intervals, so merge order across a wave only needs to be deterministic).
 """
 
 from __future__ import annotations
@@ -13,9 +17,9 @@ from typing import Dict, List
 
 import numpy as np
 
-from longcalld_tpu import config
-from longcalld_tpu.config import CallOpts
-from longcalld_tpu.core.chunk import WindowChunk
+from longcalld_torch import config
+from longcalld_torch.config import CallOpts
+from longcalld_torch.core.chunk import WindowChunk
 from longcalld_torch.core.phase import assign_haplotypes
 from longcalld_torch.ops.wfa import get_aligner
 
@@ -34,7 +38,8 @@ def fuse_requests(requests):
     """Fuse one round's (pairs, left_align) requests into a single flat
     submit: [(key, (pairs, la))] -> (flat, flags, owners) where owners is
     [(key, offset, count)].  ``la`` is one flag for the whole request or
-    a per-pair flag list (the fused star-MSA rounds)."""
+    a per-pair flag list (the fused star-MSA rounds) — the single wire
+    convention shared by this driver and consensus._drive_lockstep."""
     flat: list = []
     flags: list = []
     owners: list = []
@@ -52,7 +57,7 @@ def fuse_requests(requests):
 
 def drive_generators(gens: Dict[int, "object"], aligner) -> Dict[int, tuple]:
     """Run region coroutines in lockstep; batch each round's alignment
-    requests into one aligner submit (both gap conventions share it)."""
+    requests into one device call per gap convention."""
     results: Dict[int, tuple] = {}
     to_send: Dict[int, object] = {i: None for i in gens}
     live = dict(gens)
@@ -68,6 +73,8 @@ def drive_generators(gens: Dict[int, "object"], aligner) -> Dict[int, tuple]:
         if not requests:
             break
         to_send = {i: [] for i in requests}
+        # one fused submit per round: both gap conventions share device
+        # batches (per-pair reversal), minimizing dispatches on the link
         flat, flags, owners = fuse_requests(requests.items())
         if flat:
             res = aligner.collect(aligner.submit(flat, left_align=flags))
@@ -77,8 +84,8 @@ def drive_generators(gens: Dict[int, "object"], aligner) -> Dict[int, tuple]:
 
 
 def process_noisy_regions(opt: CallOpts, chunk: WindowChunk) -> None:
-    from longcalld_tpu.core.consensus import merge_var_profile
-    from longcalld_torch.core.consensus import collect_noisy_vars1
+    from longcalld_torch.core.consensus import (collect_noisy_vars1,
+                                              merge_var_profile)
     aligner = get_aligner(opt, getattr(chunk, "_device", None))
     aligner.memo_clear()  # memo is per-window (pairs repeat across waves)
     order = sort_noisy_regs(chunk)

@@ -39,8 +39,7 @@ import threading
 from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 _CTX_IDS = itertools.count(1)
-# the checkout that holds longcalld_torch (and longcalld_tpu, whose host
-# code the workers import)
+# the checkout that holds longcalld_torch
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 

@@ -130,7 +130,7 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
         sys.path.insert(0, os.path.join(ROOT, "tests"))
     from torch_helpers import build_contig, vcf_body
 
-    from longcalld_tpu.config import CallOpts
+    from longcalld_torch.config import CallOpts
     from longcalld_torch.core.pipeline import run_call
 
     with tempfile.TemporaryDirectory() as d:

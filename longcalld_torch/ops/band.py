@@ -10,7 +10,9 @@ Each entry point has two forms:
   utils/kbuild.py, launched for CUDA tensors at every band width the
   Pallas kernels take: B a multiple of 128 from 128 to 4096 (the
   aligner's routing sends only the B = 256 bucket from ``submit``;
-  ``BatchAligner._align_batch`` reaches the others);
+  ``BatchAligner._align_batch`` reaches the others).  The forward kernel
+  has two designs, chosen by ``band_fwd_config``: warps per pair for
+  B <= 512, one CTA per pair above;
 * a plain PyTorch version (``*_plain``), taken for CPU tensors only; it
   takes any B.
 A CUDA tensor never falls back to the plain version: the wrapper launches
@@ -23,6 +25,7 @@ what its design does about it) head the .cu files.
 
 from __future__ import annotations
 
+import collections
 import threading
 
 import torch
@@ -34,9 +37,16 @@ BIG = 1 << 28
 BAND_STEP, BAND_MAX = 128, 4096
 OFF = -1                      # traceback position that fell off the band
 OFF_LEFT, OFF_RIGHT = 1, 2    # the edge a plain walk fell off (off_edge)
+# band_fwd's warp design (B <= 512): the warps-per-pair counts each width
+# is built for (columns per lane C = B / (32 * wpp)), the ones that were
+# fastest at some batch on the H100 (PERF.md)
+WARP_CONFIGS = {128: (1,), 256: (1, 4), 384: (3,), 512: (1, 4)}
+MAX_GROUP_WARPS = 8           # warps of one CTA of the warp design
 
 _count_lock = threading.Lock()
 _launches = {"band_fwd": 0, "band_bwd": 0}
+# launches by (B, Lp, batch), beside the totals
+_shapes = {name: collections.Counter() for name in _launches}
 
 
 def launch_counts() -> dict:
@@ -44,15 +54,24 @@ def launch_counts() -> dict:
         return dict(_launches)
 
 
+def launch_shapes() -> dict:
+    """{kernel: {"B,Lp,batch": launches}} since the last reset."""
+    with _count_lock:
+        return {name: {",".join(map(str, k)): n for k, n in sorted(c.items())}
+                for name, c in _shapes.items()}
+
+
 def reset_launch_counts() -> None:
     with _count_lock:
         for k in _launches:
             _launches[k] = 0
+            _shapes[k].clear()
 
 
-def _count(name: str) -> None:
+def _count(name: str, shape) -> None:
     with _count_lock:
         _launches[name] += 1
+        _shapes[name][shape] += 1
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -74,14 +93,50 @@ def _check_band(B: int) -> None:
                          f"got B={B}")
 
 
+def _check_config(B: int, wpp: int, ppc: int) -> None:
+    ok = ((wpp, ppc) == (0, 0) if B > 512 else
+          wpp in WARP_CONFIGS[B] and 1 <= ppc and wpp * ppc <= MAX_GROUP_WARPS)
+    if not ok:
+        raise ValueError(f"band_fwd has no configuration of {wpp} warps per "
+                         f"pair and {ppc} pairs per CTA at B={B}")
+
+
 # ---------------------------------------------------------------- forward
 
 
+def band_fwd_config(B: int, batch: int, sms: int = 132):
+    """(warps per pair, pairs per CTA) of band_fwd at this width and batch
+    on a card of ``sms`` SMs: (0, 0) for B > 512 (one CTA per pair).  Once
+    the pairs outnumber the SMs, one warp per pair (no barrier in the row
+    loop); below, each pair is split over 4 warps at B 256 and 512, so
+    that the sub-partitions of its SM share it.  B 384 always takes 3
+    warps (one would need C = 12 columns per lane), B 128 always one.
+    Then as many pairs per CTA as keep at least one CTA on every SM.  On
+    the H100 this took the fastest configuration at every shape timed
+    (PERF.md)."""
+    if B > 512:
+        return 0, 0
+    wpps = WARP_CONFIGS[B]
+    wpp = max(wpps) if batch <= sms else min(wpps)
+    ppc = 1
+    for p in (8, 4, 2):
+        if p * wpp <= MAX_GROUP_WARPS and -(-batch // p) >= sms:
+            ppc = p
+            break
+    return wpp, ppc
+
+
+def sm_count(dev) -> int:
+    """The SM count of a CUDA device."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def banded_dp(P, Tband, plen, tlen, dlo, B: int, Lp: int, x: int, o1: int,
-              e1: int, o2: int, e2: int):
+              e1: int, o2: int, e2: int, config=None):
     """Forward banded DP.  Returns (tbs (Lp+1, batch, B) uint8, finals
     (batch, 5) int32 in PERM order [I1, I2, D1, D2, M], edge_min (batch,)
-    int32), exactly ops/wfa.py:_banded_dp's outputs."""
+    int32), exactly ops/wfa.py:_banded_dp's outputs.  ``config`` (warps
+    per pair, pairs per CTA) overrides band_fwd_config on CUDA tensors."""
     if P.device.type == "cpu":
         return banded_dp_plain(P, Tband, plen, tlen, dlo, B, Lp, x, o1, e1,
                                o2, e2)
@@ -93,6 +148,9 @@ def banded_dp(P, Tband, plen, tlen, dlo, B: int, Lp: int, x: int, o1: int,
     _check(Tband, "Tband", torch.int8, (batch, Lp + B), dev)
     for name, t in (("plen", plen), ("tlen", tlen), ("dlo", dlo)):
         _check(t, name, torch.int32, (batch,), dev)
+    wpp, ppc = (config if config is not None
+                else band_fwd_config(B, batch, sm_count(dev)))
+    _check_config(B, wpp, ppc)
     tbs = torch.empty((Lp + 1, batch, B), dtype=torch.uint8, device=dev)
     finals = torch.empty((batch, 5), dtype=torch.int32, device=dev)
     edge_min = torch.empty((batch,), dtype=torch.int32, device=dev)
@@ -101,10 +159,10 @@ def banded_dp(P, Tband, plen, tlen, dlo, B: int, Lp: int, x: int, o1: int,
         err = lib.lcd_band_fwd(
             P.data_ptr(), Tband.data_ptr(), plen.data_ptr(), tlen.data_ptr(),
             dlo.data_ptr(), tbs.data_ptr(), finals.data_ptr(),
-            edge_min.data_ptr(), batch, B, Lp, x, o1, e1, o2, e2,
+            edge_min.data_ptr(), batch, B, Lp, x, o1, e1, o2, e2, wpp, ppc,
             torch.cuda.current_stream(dev).cuda_stream)
     kbuild.check(err, "band_fwd")
-    _count("band_fwd")
+    _count("band_fwd", (B, Lp, batch))
     return tbs, finals, edge_min
 
 
@@ -228,7 +286,7 @@ def backward_resolve(tbs, plen, tlen, dlo, finals, B: int, Lp: int):
             finals.data_ptr(), packed.data_ptr(), b0.data_ptr(), batch, B, Lp,
             torch.cuda.current_stream(dev).cuda_stream)
     kbuild.check(err, "band_bwd")
-    _count("band_bwd")
+    _count("band_bwd", (B, Lp, batch))
     return packed, b0
 
 

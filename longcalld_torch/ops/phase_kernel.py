@@ -346,8 +346,8 @@ def run_phase_kernel(opt, chunk, target_cate: int,
     (default ``make_mesh(mesh_devices, _device)``) with R padded to a
     multiple of the mesh size, and write results back.  Returns False
     (caller runs the host loop) when the window shape is degenerate."""
-    from longcalld_tpu.core.phase import _score_masks
-    from longcalld_tpu.io.bam import CDIFF
+    from longcalld_torch.core.phase import _score_masks
+    from longcalld_torch.io.bam import CDIFF
 
     cand = chunk.cand_vars
     n_reads = chunk.n_reads

@@ -26,11 +26,11 @@ import numpy as np
 import torch
 
 from longcalld_torch.ops import band
+from longcalld_torch.ops.affine_align import (AlnResult, _finish,
+                                              align_affine2p,
+                                              align_affine2p_many)
 from longcalld_torch.ops.convert import from_numpy
 from longcalld_torch.utils.device import resolve_device
-from longcalld_tpu.ops.affine_align import (AlnResult, _finish,
-                                            align_affine2p,
-                                            align_affine2p_many)
 
 BIG = band.BIG
 OP_EQ, OP_X, OP_I, OP_D = 7, 8, 1, 2
@@ -149,7 +149,7 @@ def calibrate_min_cells(device, x: int = 6, o1: int = 6, e1: int = 2,
 
     out = int(min(max(2.0 * latency * host_cells_per_s, 65_536), 2e9))
     _CALIBRATED_MIN_CELLS[key] = out
-    from longcalld_tpu.utils import log
+    from longcalld_torch.utils import log
     log.debug(1, "wfa",
               f"device routing threshold: {out} cells (round trip "
               f"{latency*1e6:.1f} us, host {host_cells_per_s/1e6:.0f} "
@@ -523,7 +523,7 @@ def aligner_totals() -> dict:
     for al in _ALIGNER_CACHE.values():
         for k in tot:
             tot[k] += int(getattr(al, k, 0))
-    from longcalld_tpu.ops.affine_align import native_cell_counters
+    from longcalld_torch.ops.affine_align import native_cell_counters
     tot.update(native_cell_counters())
     return tot
 

@@ -8,7 +8,8 @@ Tolerance: exact equality of every output (all are integers).  Inputs are
 built with numpy from seeds the way BatchAligner._submit_batch builds them
 (tests/test_pallas_band.py:_build), and fed to both packages.  On CPU the
 port's wrappers take their plain PyTorch versions; the CUDA kernels are
-compared with those plain versions on the card by chip_smoke.py.
+compared with those plain versions on the card by chip_smoke.py, which
+also runs every configuration of band_fwd's warp design (B <= 512).
 """
 
 import numpy as np
@@ -174,6 +175,55 @@ def test_walk_on_random_traceback_bytes(seed, B):
                                B, 64)
     assert (off_edge == band.OFF_LEFT).any()
     assert (off_edge == band.OFF_RIGHT).any()
+
+
+# the warp design's widths (B <= 512), at batches the pairs per CTA do not
+# divide (1, 3, 70), Lp 256 and 1024; plen == 0 dummies where the batch
+# holds two pairs, a band-escape pair where Lp leaves it room
+@pytest.mark.parametrize("B,batch,Lp", [
+    (128, 1, 256), (128, 70, 1024), (256, 3, 1024), (256, 70, 256),
+    (256, 1, 1024), (384, 3, 256), (384, 70, 1024), (512, 1, 1024),
+    (512, 70, 256), (512, 3, 1024),
+])
+def test_warp_widths_match_jax(B, batch, Lp):
+    rng = np.random.default_rng(B + batch + Lp)
+    escape = Lp >= 2 * B
+    arrays = _build(rng, batch, B, Lp, empty=batch >= 2, escape=escape)
+    tbs, finals = _check_forward(arrays, B, Lp)
+    _check_backward(tbs, finals, arrays, B, Lp)
+    if escape:
+        _, fin, edge = band.banded_dp(*from_numpy(arrays, CPU), B, Lp, X, O1,
+                                      E1, O2, E2)
+        assert int(edge[-1]) < int(fin[-1].min()), "escape pair stayed in band"
+
+
+@pytest.mark.parametrize("batch", [1, 3, 64, 70, 256, 512, 515, 2048])
+def test_band_fwd_config_is_built(batch):
+    """band_fwd_config gives every width of the warp design a configuration
+    the CUDA source instantiates (ops/band.py:WARP_CONFIGS), with at least
+    one CTA per SM where the batch allows it, and one CTA per pair above
+    B = 512; other configurations raise before any launch."""
+    for B in (128, 256, 384, 512):
+        for sms in (132, 8):
+            wpp, ppc = band.band_fwd_config(B, batch, sms)
+            band._check_config(B, wpp, ppc)
+            assert ppc == 1 or -(-batch // ppc) >= sms
+    assert band.band_fwd_config(1024, batch) == (0, 0)
+    band._check_config(1024, 0, 0)
+    for B, wpp, ppc in ((256, 3, 1), (256, 1, 9), (128, 4, 1), (1024, 1, 1),
+                        (512, 0, 0)):
+        with pytest.raises(ValueError, match="no configuration"):
+            band._check_config(B, wpp, ppc)
+
+
+@pytest.mark.parametrize("B,batch,want", [
+    (256, 64, (4, 1)), (256, 512, (1, 2)), (256, 2048, (1, 8)),
+    (128, 64, (1, 1)), (384, 512, (3, 2)), (512, 64, (4, 1)),
+])
+def test_band_fwd_config_takes_the_fastest_timed(B, batch, want):
+    """The configurations the H100 ran fastest at the main path's batch
+    buckets (PERF.md: tools/time_band_fwd.py, 132 SMs)."""
+    assert band.band_fwd_config(B, batch, 132) == want
 
 
 @pytest.mark.parametrize("B,ok", [

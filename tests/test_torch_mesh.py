@@ -7,6 +7,7 @@ Tolerance: exact equality of every output (all are integers; every count
 stays below 2^24, so the shards' partial sums add exactly), and byte-equal
 VCF bodies.  A CPU mesh is n entries of ``cpu``: the blocks run one after
 another on the host, through the same code that puts them on n cards.
+Port runs take the port's own CallOpts and report into its own counters.
 """
 
 import io
@@ -24,16 +25,16 @@ from longcalld_tpu.config import CallOpts  # noqa: E402
 from longcalld_tpu.core import pipeline as jpl  # noqa: E402
 from longcalld_tpu.ops import phase_kernel as jpk  # noqa: E402
 from longcalld_tpu.parallel import mesh as jmesh  # noqa: E402
-from longcalld_tpu.utils import counters  # noqa: E402
 from longcalld_torch.core import pipeline as tpl  # noqa: E402
 from longcalld_torch.core import procpool  # noqa: E402
 from longcalld_torch.ops import phase_kernel as tpk  # noqa: E402
 from longcalld_torch.ops.convert import from_numpy  # noqa: E402
 from longcalld_torch.parallel import mesh as tmesh  # noqa: E402
+from longcalld_torch.utils import counters  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(__file__))
 from torch_helpers import (build_contig, phase_window,  # noqa: E402
-                           pool_calls, vcf_body)
+                           pool_calls, port_opts, vcf_body)
 
 CPU = torch.device("cpu")
 FIELDS = ("cons", "haps", "ps_start", "agree", "conflict", "profile")
@@ -158,6 +159,8 @@ def _opt(fa, bam, **kw):
 
 
 def _call(run_call, opt, **kw):
+    if run_call is tpl.run_call:
+        opt = port_opts(opt)
     buf = io.StringIO()
     run_call(opt, buf, "t", **kw)
     return vcf_body(buf.getvalue())

@@ -7,8 +7,9 @@ produce alignment pairs for the device path), 20x HiFi-like reads, and
 100 kb windows so the stitch between windows runs.  The port runs on CPU
 tensors with device_min_cells=1, so every eligible pair goes through its
 kernel wrappers (their plain versions on CPU); the JAX package runs with
-use_device True and False.  A subprocess whose import system refuses jax
-must produce the same VCF.
+use_device True and False.  Each port run takes the port's own CallOpts.
+A subprocess whose import system refuses jax and longcalld_tpu must
+produce the same VCF through run_call and through the port's CLI.
 """
 
 import io
@@ -20,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from longcalld_torch.config import CallOpts as TCallOpts
 from longcalld_tpu.config import CallOpts
 from longcalld_tpu.core.pipeline import run_call as run_call_jax
 from longcalld_torch.core.pipeline import run_call as run_call_torch
@@ -33,9 +35,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 L = 200_000
 
 
-def _opt(fa, bam, **kw):
-    return CallOpts.hifi(ref_fa_fn=fa, in_bam_fns=[bam], host_procs=0,
-                         n_threads=2, window_size=100_000, **kw)
+def _opt(fa, bam, cls=CallOpts, **kw):
+    return cls.hifi(ref_fa_fn=fa, in_bam_fns=[bam], host_procs=0,
+                    n_threads=2, window_size=100_000, **kw)
+
+
+def _topt(fa, bam, **kw):
+    return _opt(fa, bam, cls=TCallOpts, **kw)
 
 
 def _body(text):
@@ -70,7 +76,7 @@ def jax_bodies(workload):
 def test_port_device_path_matches_jax(workload, jax_bodies):
     twfa._ALIGNER_CACHE.clear()
     buf = io.StringIO()
-    run_call_torch(_opt(*workload, use_device=True, device_min_cells=1),
+    run_call_torch(_topt(*workload, use_device=True, device_min_cells=1),
                    buf, "t", device="cpu")
     assert _body(buf.getvalue()) == jax_bodies[True]
     tot = twfa.aligner_totals()
@@ -86,39 +92,55 @@ def test_port_host_only_matches_jax(workload, jax_bodies, monkeypatch):
     monkeypatch.setattr(tdev, "resolve_device", boom)
     monkeypatch.setattr(twfa, "resolve_device", boom)
     buf = io.StringIO()
-    run_call_torch(_opt(*workload, use_device=False), buf, "t")
+    run_call_torch(_topt(*workload, use_device=False), buf, "t")
     assert _body(buf.getvalue()) == jax_bodies[False]
 
 
+_REFUSED = ("jax", "jaxlib", "longcalld_tpu")
 _NO_JAX = r"""
 import importlib.abc, io, sys
 
-class RefuseJax(importlib.abc.MetaPathFinder):
+REFUSED = %r
+
+class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError("jax is refused in this process")
+        if name.split(".")[0] in REFUSED:
+            raise ImportError(name + " is refused in this process")
         return None
 
-sys.meta_path.insert(0, RefuseJax())
-from longcalld_tpu.config import CallOpts
+sys.meta_path.insert(0, Refuse())
+from longcalld_torch.cli import main
+from longcalld_torch.config import CallOpts
 from longcalld_torch.core.pipeline import run_call
-fa, bam = sys.argv[1], sys.argv[2]
+fa, bam, cli_out = sys.argv[1:4]
 opt = CallOpts.hifi(ref_fa_fn=fa, in_bam_fns=[bam], host_procs=0,
                     n_threads=2, window_size=100_000, device_min_cells=1)
 buf = io.StringIO()
 run_call(opt, buf, "t", device="cpu")
-assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
+assert main(["call", fa, bam, "--no-device", "--host-procs", "0", "-t", "2",
+             "-o", cli_out]) == 0
+assert not any(m.split(".")[0] in REFUSED for m in sys.modules)
 sys.stdout.write(buf.getvalue())
-"""
+""" % (_REFUSED,)
 
 
-def test_port_runs_without_jax(workload, jax_bodies):
+def test_port_runs_without_jax(workload, jax_bodies, tmp_path):
+    """run_call and the CLI's `call` in a process that refuses jax and
+    the JAX package: the VCF bodies equal the JAX package's runs."""
     env = dict(os.environ, PYTHONPATH=ROOT)
-    proc = subprocess.run([sys.executable, "-c", _NO_JAX, *workload],
+    cli_out = tmp_path / "cli.vcf"
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX, *workload,
+                           str(cli_out)],
                           capture_output=True, text=True, env=env,
                           timeout=300, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert _body(proc.stdout) == jax_bodies[True]
+    fa, bam = workload
+    ref = io.StringIO()
+    run_call_jax(CallOpts.hifi(ref_fa_fn=fa, in_bam_fns=[bam],
+                               host_procs=0, n_threads=2,
+                               use_device=False), ref, "t")
+    assert _body(cli_out.read_text()) == _body(ref.getvalue())
 
 
 def test_cli_host_only_matches_jax(workload, jax_bodies, tmp_path):
@@ -147,20 +169,21 @@ def test_cuda_requested_without_cuda_raises(workload, monkeypatch):
         resolve_device("cuda:0")
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(RuntimeError, match="cuda"):
-        run_call_torch(_opt(*workload, use_device=True), io.StringIO(), "t")
+        run_call_torch(_topt(*workload, use_device=True), io.StringIO(),
+                       "t")
 
 
 def test_shard_partition_merges_to_full_run(workload, tmp_path):
     """--shard i/n takes every n-th region chunk; merging the shard VCFs
     gives the JAX package's unsharded records (host-only, so cheap)."""
-    from longcalld_tpu.cli import merge_vcfs
+    from longcalld_torch.cli import merge_vcfs
     regions = ["chr1:1-100000", "chr1:100001-200000"]
     paths = []
     for i in range(2):
         path = tmp_path / f"s{i}.vcf"
         with open(path, "w") as f:
-            run_call_torch(_opt(*workload, use_device=False, regions=regions,
-                                shard=f"{i}/2"), f, "t")
+            run_call_torch(_topt(*workload, use_device=False,
+                                 regions=regions, shard=f"{i}/2"), f, "t")
         assert _body(path.read_text()), f"shard {i} is empty"
         paths.append(str(path))
     merged = io.StringIO()

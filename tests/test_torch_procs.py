@@ -7,6 +7,7 @@ with 25 kb windows (8 windows, so 4 explicit workers engage the pool), and
 40 kb planted-het scenes over 5 kb windows where every stitch vote crosses
 a worker-range boundary.  Device workers run on ``device="cpu"``, i.e.
 through the kernels' plain PyTorch versions.  Pools stay at 2-4 workers.
+Port runs take the port's own CallOpts and report into its own counters.
 """
 
 import dataclasses
@@ -20,15 +21,18 @@ import numpy as np
 import pytest
 import torch
 
-from longcalld_tpu.config import CallOpts
-from longcalld_tpu.core import pipeline as jpl
-from longcalld_tpu.utils import counters
+from longcalld_torch.config import CallOpts as TCallOpts
 from longcalld_torch.core import pipeline as tpl
 from longcalld_torch.core import procpool
+from longcalld_torch.core.windows import Window
+from longcalld_torch.utils import counters
+from longcalld_tpu.config import CallOpts
+from longcalld_tpu.core import pipeline as jpl
 
 sys.path.insert(0, os.path.dirname(__file__))
 from synthcontig import write_synth_fasta  # noqa: E402
-from torch_helpers import build_contig, pool_calls, vcf_body  # noqa: E402
+from torch_helpers import (build_contig, pool_calls, port_opts,  # noqa: E402
+                           vcf_body)
 from util_bam import make_record, sim_read, write_bam  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -36,6 +40,8 @@ L = 200_000
 
 
 def _call(run_call, opt, **kw):
+    if run_call is tpl.run_call:
+        opt = port_opts(opt)
     buf = io.StringIO()
     run_call(opt, buf, "t", **kw)
     return vcf_body(buf.getvalue())
@@ -209,9 +215,8 @@ def test_pool_rule_matches_jax(contig, kw, pool, monkeypatch, tmp_path):
 
 
 def test_worker_error_propagates_and_pool_survives(contig, jax_ref):
-    from longcalld_tpu.core.windows import Window
-
-    good = _opt(*contig, host_procs=4, n_threads=4, use_device=False)
+    good = port_opts(_opt(*contig, host_procs=4, n_threads=4,
+                          use_device=False))
     bad = dataclasses.replace(good, in_bam_fns=["/nonexistent/nope.bam"])
     wins = [Window(0, "chr1", 1, 25_000, 0, 0)]
     with pytest.raises(RuntimeError, match="range worker failed"):
@@ -223,9 +228,7 @@ def test_device_worker_without_card_raises(contig):
     """A worker asked for cuda:0 that sees no card fails the range; it
     never runs host-only.  The parent refuses a CUDA device it lacks
     before any worker starts."""
-    from longcalld_tpu.core.windows import Window
-
-    opt = _opt(*contig, use_device=True)
+    opt = port_opts(_opt(*contig, use_device=True))
     wins = [Window(0, "chr1", 1, 25_000, 0, 0)]
     no_card = lambda k, n: {"CUDA_VISIBLE_DEVICES": ""}  # noqa: E731
     with pytest.raises(RuntimeError, match="range worker failed(.|\n)*cuda"):
@@ -265,13 +268,13 @@ def test_worker_env_fn_expansion(monkeypatch):
 
     default = types.SimpleNamespace(worker_device_env=tpl.TPU_WORKER_ENV,
                                     window_devices=0)
-    assert CallOpts().worker_device_env == tpl.TPU_WORKER_ENV
+    assert TCallOpts().worker_device_env == tpl.TPU_WORKER_ENV
     monkeypatch.delenv("CUDA_VISIBLE_DEVICES", raising=False)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
     fn = tpl._worker_env_fn(default, torch.device("cuda", 0))
     assert [fn(k, 5)["CUDA_VISIBLE_DEVICES"] for k in range(5)] == \
         ["0", "1", "2", "0", "1"]
-    capped = dataclasses.replace(CallOpts(), window_devices=2)
+    capped = dataclasses.replace(TCallOpts(), window_devices=2)
     fn = tpl._worker_env_fn(capped, torch.device("cuda", 0))
     assert [fn(k, 4)["CUDA_VISIBLE_DEVICES"] for k in range(4)] == \
         ["0", "1", "0", "1"]
@@ -318,10 +321,10 @@ import importlib.abc, os, sys
 
 class RefuseJax(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if name.split(".")[0] in ("jax", "jaxlib", "longcalld_tpu"):
             with open(os.environ["NOJAX_LOG"], "a") as f:
                 f.write(f"{os.getpid()} {name}\n")
-            raise ImportError("jax is refused in this process")
+            raise ImportError(name + " is refused in this process")
         return None
 
 sys.meta_path.insert(0, RefuseJax())
@@ -329,7 +332,7 @@ sys.meta_path.insert(0, RefuseJax())
 
 _POOL_PARENT = r"""
 import io, sys
-from longcalld_tpu.config import CallOpts
+from longcalld_torch.config import CallOpts
 from longcalld_torch.core import pipeline
 from torch_helpers import pool_calls
 fa, bam = sys.argv[1], sys.argv[2]
@@ -342,15 +345,17 @@ with pool_calls(pipeline) as calls:
         pipeline.run_call(opt, buf, "t", device=dev)
         bodies.append(buf.getvalue())
 assert calls == [(8, 2), (8, 2)] and bodies[0] == bodies[1]
-assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "longcalld_tpu")
+               for m in sys.modules)
 sys.stdout.write(bodies[0])
 """
 
 
 def test_no_worker_imports_jax(contig, jax_ref, tmp_path):
-    """A parent whose every process refuses jax (sitecustomize first on
-    PYTHONPATH, inherited by the workers) runs host and device pools to
-    the same records; no process even tried to import jax."""
+    """A parent whose every process refuses jax and the JAX package
+    (sitecustomize first on PYTHONPATH, inherited by the workers) runs
+    host and device pools to the same records; no process even tried to
+    import either."""
     site = tmp_path / "site"
     site.mkdir()
     (site / "sitecustomize.py").write_text(_REFUSE_JAX)

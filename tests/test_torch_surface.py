@@ -8,6 +8,7 @@ Workloads are seeded synthetic contigs (tests/synthcontig.py) of 100 kb at
 20x with 25 kb windows (four windows: the pool engages with 2 explicit
 workers).  Port runs with ``use_device`` run on ``device="cpu"`` (the
 kernels' plain PyTorch versions and the phasing EM on CPU tensors).
+Port runs take the port's own CallOpts and its own Checkpoint.
 """
 
 import dataclasses
@@ -18,20 +19,23 @@ import sys
 import numpy as np
 import pytest
 
+from longcalld_torch.core import pipeline as tpl
+from longcalld_torch.utils.checkpoint import Checkpoint
 from longcalld_tpu.config import CallOpts
 from longcalld_tpu.core import pipeline as jpl
-from longcalld_tpu.utils.checkpoint import Checkpoint
-from longcalld_torch.core import pipeline as tpl
 
 sys.path.insert(0, os.path.dirname(__file__))
 from synthcontig import (build_truth, write_synth_bam,  # noqa: E402
                          write_synth_fasta)
-from torch_helpers import build_contig, pool_calls, vcf_body  # noqa: E402
+from torch_helpers import (build_contig, pool_calls, port_opts,  # noqa: E402
+                           vcf_body)
 
 L = 100_000
 
 
 def _run(run_call, opt, **kw):
+    if run_call is tpl.run_call:
+        opt = port_opts(opt)
     buf = io.StringIO()
     n = run_call(opt, buf, "t", **kw)
     return n, vcf_body(buf.getvalue())
@@ -240,7 +244,7 @@ def test_shard_auto_without_env_is_unsharded(contig, fresh, monkeypatch):
 def test_shard_auto_ranks_merge_to_full_run(contig, tmp_path, monkeypatch):
     """RANK/WORLD_SIZE (as torchrun sets them) pick every n-th region
     chunk; merging the two ranks' VCFs gives the JAX unsharded records."""
-    from longcalld_tpu.cli import merge_vcfs
+    from longcalld_torch.cli import merge_vcfs
     regions = ["chr1:1-50000", "chr1:50001-100000"]
     paths = []
     monkeypatch.setenv("WORLD_SIZE", "2")
@@ -248,7 +252,8 @@ def test_shard_auto_ranks_merge_to_full_run(contig, tmp_path, monkeypatch):
         monkeypatch.setenv("RANK", str(rank))
         path = tmp_path / f"s{rank}.vcf"
         with open(path, "w") as f:
-            tpl.run_call(_opt(contig, shard="auto", regions=regions), f, "t")
+            tpl.run_call(port_opts(_opt(contig, shard="auto",
+                                        regions=regions)), f, "t")
         assert vcf_body(path.read_text()), f"rank {rank} is empty"
         paths.append(str(path))
     merged = io.StringIO()

@@ -204,7 +204,7 @@ def test_calibration_env_override_and_cpu_threshold(monkeypatch):
 
 
 def test_get_aligner_keys_on_device_and_threshold():
-    from longcalld_tpu.config import CallOpts
+    from longcalld_torch.config import CallOpts
     twfa._ALIGNER_CACHE.clear()
     try:
         o1 = CallOpts.hifi(device_min_cells=1)

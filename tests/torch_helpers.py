@@ -1,22 +1,44 @@
-"""Helpers shared by the port's tests (tests/test_torch_*.py) and
-chip_smoke.py: VCF bodies, a spy on run_call's pool dispatch, the seeded
-synthetic contig they call, random traceback bytes for the band walk and
-seeded SV-like pairs for the wide band buckets."""
+"""Helpers shared by the port's tests (tests/test_torch_*.py),
+longcalld_torch/entry.py and chip_smoke.py: VCF bodies, a spy on
+run_call's pool dispatch, the seeded synthetic contig they call, random
+traceback bytes for the band walk and seeded SV-like pairs for the wide
+band buckets.
+
+The contig builder is a copy of tests/synthcontig.py (build_truth,
+HapMap, apply_ont_errors, write_synth_bam without the r10 error model,
+write_synth_fasta) and tests/util_bam.py (make_record, write_bam) over
+the port's io, so that nothing here imports longcalld_tpu; it writes the
+same FASTA, BAM and BAI bytes for the same seed
+(tests/test_torch_selfcontained.py)."""
 
 import contextlib
+import dataclasses
 import os
-import sys
+import struct
+from typing import List, Tuple
 
 import numpy as np
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from synthcontig import (build_truth, write_synth_bam,  # noqa: E402
-                         write_synth_fasta)
+from longcalld_torch.io.bgzf import BgzfWriter
+
+CMATCH, CINS, CDEL, CSOFT = 0, 1, 2, 4
+NT4_TO_NT16 = [1, 2, 4, 8, 15]  # A C G T N
+_NT16_LUT = np.array(NT4_TO_NT16, dtype=np.uint8)
 
 
 def vcf_body(text):
     """The record lines of a VCF text."""
     return [ln for ln in text.splitlines() if not ln.startswith("#")]
+
+
+def port_opts(opt):
+    """The port's own CallOpts with the field values of ``opt``, a CallOpts
+    of either package: a port run reads the port's config module only."""
+    from longcalld_torch.config import CallOpts
+    if isinstance(opt, CallOpts):
+        return opt
+    return CallOpts(**{f.name: getattr(opt, f.name)
+                       for f in dataclasses.fields(CallOpts)})
 
 
 @contextlib.contextmanager
@@ -148,3 +170,372 @@ def sv_pairs(seed, n=900):
                             p[a:]])
         groups[w] = [(p, t), (t, p)]
     return groups
+
+
+# ---- the seeded contig (copies of tests/synthcontig.py, tests/util_bam.py)
+
+def make_record(tid, pos, qname, cigar, seq4, quals, mapq=60, flag=0,
+                tags=b""):
+    """cigar: list of (op, len) BAM codes; seq4: nt4 codes."""
+    name = qname.encode() + b"\x00"
+    n_cigar = len(cigar)
+    l_seq = len(seq4)
+    head = struct.pack("<iiBBHHHiiii", tid, pos, len(name), mapq, 0,
+                       n_cigar, flag, l_seq, -1, -1, 0)
+    cig = b"".join(struct.pack("<I", (ln << 4) | op) for op, ln in cigar)
+    codes = _NT16_LUT[np.asarray(seq4, dtype=np.uint8)]
+    if l_seq % 2:
+        codes = np.concatenate([codes, np.zeros(1, np.uint8)])
+    packed = ((codes[0::2] << 4) | codes[1::2]).astype(np.uint8)
+    qual = np.asarray(quals, dtype=np.uint8).tobytes()
+    return head + name + cig + packed.tobytes() + qual + tags
+
+
+def write_bam(path, references, lengths, records):
+    """records: list of raw record bytes (no block_size prefix)."""
+    with open(path, "wb") as fh:
+        w = BgzfWriter(fh)
+        text = "".join(f"@SQ\tSN:{n}\tLN:{l}\n"
+                       for n, l in zip(references, lengths))
+        hdr = bytearray(b"BAM\x01")
+        hdr += struct.pack("<i", len(text)) + text.encode()
+        hdr += struct.pack("<i", len(references))
+        for n, l in zip(references, lengths):
+            nb = n.encode() + b"\x00"
+            hdr += struct.pack("<i", len(nb)) + nb + struct.pack("<i", l)
+        w.write(bytes(hdr))
+        for rec in records:
+            w.write(struct.pack("<i", len(rec)) + rec)
+        w.close()
+
+
+def build_truth(rng: np.random.Generator, ref4: np.ndarray, beg: int,
+                end: int, snv_per_kb: float = 1.0,
+                indel_per_kb: float = 0.125, sv_per_mb: float = 5.0,
+                min_gap: int = 150) -> List[tuple]:
+    """Plant variants at realistic human-ish densities over [beg, end):
+    returns sorted [(pos, kind, payload, gt)] with payload = alt base
+    (snv) / base list (ins) / deletion length (del).  SVs are ins/del of
+    50-400 bp; small indels 1-12 bp."""
+    span = end - beg
+    n_snv = rng.poisson(snv_per_kb * span / 1000)
+    n_ind = rng.poisson(indel_per_kb * span / 1000)
+    n_sv = rng.poisson(sv_per_mb * span / 1e6)
+    events = []
+    for _ in range(n_snv):
+        events.append(("snv", None))
+    for _ in range(n_ind):
+        events.append(("ins" if rng.random() < 0.5 else "del",
+                       int(rng.integers(1, 13))))
+    for _ in range(n_sv):
+        events.append(("ins" if rng.random() < 0.5 else "del",
+                       int(rng.integers(50, 401))))
+    rng.shuffle(events)
+    pos_pool = np.sort(rng.choice(
+        np.arange(beg + 200, end - 600, dtype=np.int64),
+        size=min(len(events), max(0, (end - beg - 800) // min_gap)),
+        replace=False))
+    # enforce min_gap between consecutive sites (vectorized prune)
+    keep = np.ones(len(pos_pool), dtype=bool)
+    last = -10**18
+    for i, p in enumerate(pos_pool):
+        if p - last < min_gap:
+            keep[i] = False
+        else:
+            last = p
+    pos_pool = pos_pool[keep]
+    truth = []
+    for pos, (kind, ln) in zip(pos_pool, events):
+        pos = int(pos)
+        gt = ("hom" if rng.random() < 0.35
+              else ("het1" if rng.random() < 0.5 else "het2"))
+        if kind == "snv":
+            payload = (int(ref4[pos]) + 1 + int(rng.integers(3))) % 4
+        elif kind == "ins":
+            payload = rng.integers(0, 4, ln).astype(np.uint8)
+        else:
+            ln = min(ln, 120) if ln < 50 else ln   # dels bounded by gap
+            if ln >= min_gap - 30:
+                ln = min_gap - 30
+            payload = int(ln)
+        truth.append((pos, kind, payload, gt))
+    return truth
+
+
+class HapMap:
+    """One haplotype: stitched sequence + run-length hap-to-ref map."""
+
+    def __init__(self, ref4: np.ndarray, beg: int, end: int,
+                 truth: List[tuple], hap: int):
+        segs: List[np.ndarray] = []
+        ops: List[int] = []
+        lens: List[int] = []          # length in hap coords (I/M) or ref (D)
+        cur = beg
+
+        def push(op, ln):
+            if ln <= 0:
+                return
+            if ops and ops[-1] == op:
+                lens[-1] += ln
+            else:
+                ops.append(op)
+                lens.append(ln)
+
+        for pos, kind, payload, gt in truth:
+            on = gt == "hom" or (gt == "het1") == (hap == 1)
+            if not on or pos < cur:
+                continue
+            segs.append(ref4[cur:pos])
+            push(CMATCH, pos - cur)
+            if kind == "snv":
+                segs.append(np.array([payload], dtype=np.uint8))
+                push(CMATCH, 1)
+                cur = pos + 1
+            elif kind == "ins":
+                segs.append(ref4[pos:pos + 1])
+                push(CMATCH, 1)
+                segs.append(np.asarray(payload, dtype=np.uint8))
+                push(CINS, len(payload))
+                cur = pos + 1
+            else:
+                segs.append(ref4[pos:pos + 1])
+                push(CMATCH, 1)
+                push(CDEL, int(payload))
+                cur = pos + 1 + int(payload)
+        segs.append(ref4[cur:end])
+        push(CMATCH, end - cur)
+        self.seq = np.concatenate(segs) if segs else np.zeros(0, np.uint8)
+        self.ops = np.asarray(ops, dtype=np.int64)
+        self.lens = np.asarray(lens, dtype=np.int64)
+        hap_consumed = np.where(self.ops == CDEL, 0, self.lens)
+        ref_consumed = np.where(self.ops == CINS, 0, self.lens)
+        self.cum_hap = np.concatenate([[0], np.cumsum(hap_consumed)])
+        self.cum_ref = np.concatenate([[0], np.cumsum(ref_consumed)])
+        self.beg = beg                 # ref coord of hap position 0
+
+    def read_cigar(self, s: int, e: int) -> Tuple[int, list]:
+        """CIGAR (list of (op, len)) and 0-based ref start for the read
+        covering hap coords [s, e)."""
+        i = int(np.searchsorted(self.cum_hap, s, side="right")) - 1
+        j = int(np.searchsorted(self.cum_hap, e, side="left"))
+        cig = []
+        ref_pos = None
+        for k in range(i, j):
+            op = int(self.ops[k])
+            ln = int(self.lens[k])
+            h0 = int(self.cum_hap[k])
+            if op != CDEL:
+                lo = max(s, h0)
+                hi = min(e, h0 + ln)
+                if hi <= lo:
+                    continue
+                if ref_pos is None:
+                    off = lo - h0
+                    ref_pos = (self.beg + int(self.cum_ref[k])
+                               + (off if op == CMATCH else 0))
+                    if op == CINS:
+                        # a read starting inside an insertion: soft-clip
+                        # the leading inserted bases so POS stays on ref
+                        cig.append([CSOFT, hi - lo])
+                        continue
+                cig.append([op, hi - lo])
+            else:
+                if ref_pos is None or s >= e:
+                    continue
+                if cig and s < e:
+                    cig.append([CDEL, ln])
+        # merge adjacent same-op runs
+        out = []
+        for op, ln in cig:
+            if out and out[-1][0] == op:
+                out[-1][1] += ln
+            else:
+                out.append([op, ln])
+        # trailing DEL is illegal; drop it
+        while out and out[-1][0] == CDEL:
+            out.pop()
+        while out and out[0][0] == CDEL:
+            ref_pos += out[0][1]
+            out.pop(0)
+        return ref_pos, [(op, ln) for op, ln in out]
+
+
+def apply_ont_errors(seq: np.ndarray, cig: List[tuple],
+                     rng: np.random.Generator, indel_rate: float
+                     ) -> Tuple[np.ndarray, List[tuple]]:
+    """Inject ONT-style 1-2 bp indel errors into a read: error sites are
+    biased into homopolymer context (the dominant real ONT error mode and
+    the reason for the reference's 67% homopolymer-majority consensus
+    rule, reference/src/assign_hap.c:264), implemented as
+    insertions duplicating the local base or 1 bp deletions inside M
+    runs."""
+    n_err = rng.poisson(indel_rate * len(seq))
+    if n_err == 0:
+        return seq, cig
+    # read positions currently consumed by M runs
+    spans = []
+    r = 0
+    for op, ln in cig:
+        if op == CMATCH:
+            spans.append((r, r + ln))
+            r += ln
+        elif op in (CINS, CSOFT):
+            r += ln
+    if not spans:
+        return seq, cig
+    lo = np.array([s for s, _ in spans])
+    hi = np.array([e for _, e in spans])
+    pool = rng.integers(0, len(seq), 4 * n_err)
+    in_m = pool[((pool[:, None] >= lo[None, :])
+                 & (pool[:, None] < hi[None, :])).any(axis=1)]
+    if len(in_m) == 0:
+        return seq, cig
+    # homopolymer bias: keep a site with p=0.9 if its 3-neighborhood is a
+    # run of one base, else p=0.25
+    keep = []
+    for p in in_m[:2 * n_err]:
+        p = int(p)
+        s = seq[max(0, p - 1):p + 2]
+        hp = len(s) >= 2 and (s == s[0]).all()
+        if rng.random() < (0.9 if hp else 0.25):
+            keep.append(p)
+        if len(keep) >= n_err:
+            break
+    events = sorted({p: ("ins" if rng.random() < 0.55 else "del",
+                         1 + int(rng.random() < 0.3))
+                     for p in keep}.items())
+    return _apply_indel_events(seq, cig, events)
+
+
+def _apply_indel_events(seq: np.ndarray, cig: List[tuple], events
+                        ) -> Tuple[np.ndarray, List[tuple]]:
+    """Splice (read_pos -> ins/del) error events into a read's seq+CIGAR
+    (shared by both ONT error models; a deletion may neither start the
+    alignment nor end an M run)."""
+    out_cig: List[list] = []
+    out_seq: List[np.ndarray] = []
+    r = 0
+    ei = 0
+
+    def push(op, ln):
+        if ln <= 0:
+            return
+        if out_cig and out_cig[-1][0] == op:
+            out_cig[-1][1] += ln
+        else:
+            out_cig.append([op, ln])
+
+    for op, ln in cig:
+        if op not in (CMATCH,):
+            push(op, ln)
+            if op in (CINS, CSOFT):
+                out_seq.append(seq[r:r + ln])
+                r += ln
+            continue
+        run_end = r + ln
+        cur = r
+        while ei < len(events) and events[ei][0] < run_end:
+            p, (kind, el) = events[ei]
+            ei += 1
+            if p < cur:
+                continue
+            if kind == "ins":
+                out_seq.append(seq[cur:p + 1])
+                push(CMATCH, p + 1 - cur)
+                out_seq.append(np.full(el, seq[p], dtype=np.uint8))
+                push(CINS, el)
+                cur = p + 1
+            else:
+                if p + 1 >= run_end:
+                    continue    # deletion may not end a run
+                if p == cur and not any(o == CMATCH for o, _ in out_cig):
+                    continue    # a deletion may not START the alignment
+                out_seq.append(seq[cur:p])
+                push(CMATCH, p - cur)
+                push(CDEL, 1)
+                cur = p + 1
+        out_seq.append(seq[cur:run_end])
+        push(CMATCH, run_end - cur)
+        r = run_end
+    new_seq = (np.concatenate(out_seq) if out_seq
+               else np.zeros(0, np.uint8))
+    return new_seq, [(op, ln) for op, ln in out_cig]
+
+
+def write_synth_bam(path: str, tname: str, ref_len: int, ref4: np.ndarray,
+                    truth: List[tuple], beg: int, end: int,
+                    coverage: float = 20.0, read_len: int = 12_000,
+                    err: float = 0.003, seed: int = 0,
+                    qual: int = 35, indel_err: float = 0.0,
+                    extra_refs=None) -> int:
+    """Write a sorted BAM of diploid reads over [beg, end); returns the
+    number of reads.  ``indel_err`` > 0 adds ONT-style indel errors
+    (apply_ont_errors)."""
+    rng = np.random.default_rng(seed)
+    haps = [HapMap(ref4, beg, end, truth, 1), HapMap(ref4, beg, end,
+                                                     truth, 2)]
+    recs = []
+    n_reads_per_hap = int(coverage * (end - beg) / read_len / 2)
+    for h, hm in enumerate(haps):
+        hl = len(hm.seq)
+        starts = np.sort(rng.integers(0, max(1, hl - read_len),
+                                      n_reads_per_hap))
+        for k, s in enumerate(starts):
+            s = int(s)
+            e = min(s + read_len, hl)
+            seq = hm.seq[s:e].copy()
+            n_err = rng.poisson(err * len(seq))
+            if n_err:
+                idx = rng.choice(len(seq), min(n_err, len(seq)),
+                                 replace=False)
+                seq[idx] = (seq[idx] + 1
+                            + rng.integers(0, 3, len(idx))) % 4
+            ref_pos, cig = hm.read_cigar(s, e)
+            if ref_pos is None or not cig:
+                continue
+            if indel_err > 0:
+                seq, cig = apply_ont_errors(seq, cig, rng, indel_err)
+            # consumed-length consistency
+            q_len = sum(ln for op, ln in cig if op in (CMATCH, CINS, CSOFT))
+            if q_len != len(seq):
+                seq = seq[:q_len]
+                if len(seq) < q_len:
+                    continue
+            recs.append((ref_pos, make_record(
+                0, ref_pos, f"s{h+1}_{k:06d}", cig, seq,
+                np.full(len(seq), qual, dtype=np.uint8), mapq=60,
+                flag=16 if (k % 4) >= 2 else 0)))
+    recs.sort(key=lambda r: r[0])
+    names, lens = [tname], [ref_len]
+    for en, el in (extra_refs or []):
+        names.append(en)
+        lens.append(el)
+    write_bam(path, names, lens, [r[1] for r in recs])
+    # true random access: bench/procs workers fetch only their window
+    # spans instead of inflating the whole file (io/bam.build_bai)
+    from longcalld_torch.io.bam import build_bai
+    build_bai(path)
+    return len(recs)
+
+
+def write_synth_fasta(path: str, tname, ref4) -> None:
+    """Write a FASTA (+.fai).  ``tname``/``ref4`` may be lists for a
+    multi-contig file (the WGS bench leg adds a read-free contig to
+    demonstrate index-driven window skipping at scale)."""
+    tnames = tname if isinstance(tname, (list, tuple)) else [tname]
+    refs = ref4 if isinstance(ref4, (list, tuple)) else [ref4]
+    nt = np.array([65, 67, 71, 84, 78], dtype=np.uint8)  # ACGTN
+    fai = []
+    off_bytes = 0
+    with open(path, "wb") as fh:
+        for tn, r4 in zip(tnames, refs):
+            ascii_seq = nt[r4]
+            hdr = f">{tn}\n".encode()
+            fh.write(hdr)
+            off_bytes += len(hdr)
+            fai.append(f"{tn}\t{len(ascii_seq)}\t{off_bytes}\t60\t61\n")
+            for off in range(0, len(ascii_seq), 60):
+                fh.write(ascii_seq[off:off + 60].tobytes() + b"\n")
+            off_bytes += len(ascii_seq) + (len(ascii_seq) + 59) // 60
+    with open(path + ".fai", "w") as fh:
+        fh.writelines(fai)
