@@ -12,10 +12,17 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      which the pairs per CTA of band_fwd's warp design do not divide, with
      plen == 0 dummies and a band-escape pair in every batch: outputs must
      be bit-equal (tolerance 0, all are integers); each shape's CUDA-event
-     ms beside its bound (ops/band.py:fwd_bound, bwd_bound); (b) every
+     ms beside its bound (fwd_bound, bwd_bound below; band_bwd and
+     compact_events queued behind a sleep kernel, so the card's own time,
+     with their host-included time beside it); (b) every
      configuration of band_fwd's warp design (warps per pair x pairs per
      CTA, at B 128, 256, 384 and 512) against the plain version at Lp 1024,
-     batch 67, bit-equal;
+     batch 67, bit-equal; (c) band_bwd against its plain version on random
+     traceback bytes at B 256 (walks off each band edge), and on the long
+     runs of tests/torch_helpers.py:random_walk_inputs (an insertion chain
+     of 151 columns, a D run of up to 46 rows: both leave band_bwd's
+     shared-memory window) at Lp 33 and 1000, bit-equal, with window
+     reloads counted;
   4. the main path: a seeded 2 Mb diploid contig (four 500 kb windows,
      30x 15 kb HiFi-like reads) called three times through the port's
      run_call -- calibrated routing threshold, forced device
@@ -49,7 +56,8 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      and DP cells/s of both kernels at bench.py's microbench shape (batch
      64, B 2048, Lp 2000); (c) the walk on random traceback bytes at B
      1024 and 4096, bit-equal, with walks off the left edge and off the
-     right edge counted apart (each must happen); (d) BatchAligner.
+     right edge counted apart (each must happen), and on the long runs at
+     B 1024 and 4096, Lp 33 and 1000, as in phase 3 (c); (d) BatchAligner.
      _align_batch on cuda:0 over seeded SV-like pairs (band buckets 1024,
      4096 and 5128), equal to the same aligner on CPU tensors (the plain
      versions), with both kernels launched at 1024 and 4096 and nothing
@@ -89,6 +97,7 @@ BAND_SHAPES = ([(b, Lp, 64) for b in BANDS for Lp in (256, BAND_LP)]
                + [(4096, 4096, 64)])
 BENCH_SHAPE = (2048, 2000, 64)   # bench.py:178's microbench (B, Lp, batch)
 WALK_BANDS = (1024, 4096)
+LONG_RUN_LPS = (33, 1000)    # Lp of the long-run walks, phases 3 (c), 7 (c)
 WINDOW = 500_000             # CallOpts' default window
 POOL_PROCS = 8               # phase 5 workers (capped by the host's cores)
 MESH_SHARDS = 4              # phase 6 mesh size
@@ -217,25 +226,39 @@ def bwd_bound(plen, Lp, n, int_rate):
     return bound_ms(walked * BWD_OPS_PER_ROW, nbytes, int_rate)
 
 
-def cuda_ms(fn, reps):
+def cuda_ms(fn, reps, queued=False):
+    """CUDA-event ms per call of ``fn`` over ``reps`` calls after one warm
+    call.  Unqueued, a call the host issues more slowly than the card runs
+    it is timed at the host's rate.  ``queued`` first puts a sleep kernel
+    on the stream, long enough that every call is enqueued before the card
+    reaches the first (doubled until the start event is still pending when
+    the last call is in): the events then time the card alone."""
     import torch
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    sleep_s = max(0.01, reps * 2e-4)
+    while sleep_s < 10:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(int(sleep_s * 2e9))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        held = not start.query()
+        torch.cuda.synchronize()
+        if not queued or held:
+            return start.elapsed_time(end) / reps
+        sleep_s *= 2
+    raise RuntimeError("the host could not enqueue the calls within 10 s")
 
 
 def check_kernels(shapes, plain_reps=1):
     """Kernel vs plain on the card; returns per-shape rows."""
     import torch
 
-    from longcalld_torch.ops import band
+    from longcalld_torch.ops import band, wfa
     from longcalld_torch.ops.convert import from_numpy
 
     dev = torch.device("cuda:0")
@@ -270,6 +293,8 @@ def check_kernels(shapes, plain_reps=1):
                                  f"at B={B} Lp={Lp} batch={n}: max |diff| "
                                  f"{err_b}")
         reps = max(2, min(20, 40960 // Lp))
+        # the walk's epilogue in ops/wfa.py:align_device
+        nins, ops = pk_k & ((1 << 14) - 1), pk_k >> 14
         fb, fb_by = fwd_bound(B, Lp, n, int_rate)
         bb, bb_by = bwd_bound(arrays[2], Lp, n, int_rate)
         row = {
@@ -278,9 +303,19 @@ def check_kernels(shapes, plain_reps=1):
             "fwd_ms": cuda_ms(lambda: band.banded_dp(*args, *dp), reps),
             "fwd_plain_ms": cuda_ms(lambda: band.banded_dp_plain(*args, *dp),
                                     plain_reps),
-            "bwd_ms": cuda_ms(lambda: band.backward_resolve(*bargs), reps),
+            # band_bwd and compact_events run faster than the host issues
+            # them: their ms are the card's (queued), the wrapper's and
+            # compact_events' host-included ones beside them
+            "bwd_ms": cuda_ms(lambda: band.backward_resolve(*bargs), reps,
+                              queued=True),
+            "bwd_wrapper_ms": cuda_ms(lambda: band.backward_resolve(*bargs),
+                                      reps),
             "bwd_plain_ms": cuda_ms(
                 lambda: band.backward_resolve_plain(*bargs), plain_reps),
+            "compact_ms": cuda_ms(lambda: wfa.compact_events(nins, ops, Lp),
+                                  reps, queued=True),
+            "compact_host_ms": cuda_ms(
+                lambda: wfa.compact_events(nins, ops, Lp), reps),
             "fwd_err": err_f, "bwd_err": err_b,
             "fwd_bound_ms": fb, "fwd_bound_by": fb_by,
             "bwd_bound_ms": bb, "bwd_bound_by": bb_by,
@@ -291,7 +326,10 @@ def check_kernels(shapes, plain_reps=1):
               f"{tuple(row['config'])}; bound {fb:.3f} ms, {fb_by}; plain "
               f"{row['fwd_plain_ms']:.1f} ms), band_bwd {row['bwd_ms']:.3f} "
               f"ms (bound {bb:.4f} ms, {bb_by}; plain "
-              f"{row['bwd_plain_ms']:.1f} ms), bit-equal", flush=True)
+              f"{row['bwd_plain_ms']:.1f} ms; wrapper, host included "
+              f"{row['bwd_wrapper_ms']:.3f} ms), bit-equal; compact_events "
+              f"{row['compact_ms']:.3f} ms (host included "
+              f"{row['compact_host_ms']:.3f} ms)", flush=True)
     return rows
 
 
@@ -358,6 +396,40 @@ def check_offband_walk(B, Lp=256, n=64):
     return n_off
 
 
+def check_long_runs(B, n=16):
+    """band_bwd against its plain version on the long runs of
+    tests/torch_helpers.py:random_walk_inputs at each Lp of LONG_RUN_LPS:
+    pair 2's insertion chain runs past the kernel's window to the left and
+    makes it reload (the count must be positive), pair 3's D run crosses a
+    window's rows.  Returns {Lp: reloads}."""
+    import torch
+
+    from longcalld_torch.ops import band
+    from longcalld_torch.ops.convert import from_numpy
+    from torch_helpers import random_walk_inputs
+
+    rng = np.random.default_rng(17)
+    dev = torch.device("cuda:0")
+    out = {}
+    for Lp in LONG_RUN_LPS:
+        args = from_numpy(random_walk_inputs(rng, B, Lp, n, spread=60,
+                                             long_runs=True), dev)
+        reloads = torch.zeros(1, dtype=torch.int32, device=dev)
+        pk_k, b0_k = band.backward_resolve(*args, B, Lp, reloads=reloads)
+        pk_p, b0_p, _ = band.backward_resolve_plain(*args, B, Lp)
+        torch.cuda.synchronize()
+        if not (torch.equal(pk_k, pk_p) and torch.equal(b0_k, b0_p)):
+            raise AssertionError(f"band_bwd differs from its plain version on "
+                                 f"the long runs at B={B} Lp={Lp}")
+        out[Lp] = int(reloads.item())
+        if out[Lp] <= 0:
+            raise AssertionError(f"the long runs at B={B} Lp={Lp} never "
+                                 "left band_bwd's window")
+    print(f"band_bwd on the long runs (B={B}, batch={n}): bit-equal, window "
+          f"reloads by Lp {out}", flush=True)
+    return out
+
+
 def bench_kernels():
     """Phase 7 (b): CUDA-event ms of both kernels at bench.py's microbench
     shape and inputs (random P and T, plen = tlen = Lp, dlo = -B/2), with
@@ -378,7 +450,7 @@ def bench_kernels():
     tbs, fin, _ = band.banded_dp(P, Tband, plen, tlen, dlo, *dp)
     fwd = cuda_ms(lambda: band.banded_dp(P, Tband, plen, tlen, dlo, *dp), 10)
     bwd = cuda_ms(lambda: band.backward_resolve(tbs, plen, tlen, dlo, fin, B,
-                                                Lp), 10)
+                                                Lp), 10, queued=True)
     cells = n * (Lp + 1) * B
     row = {"B": B, "Lp": Lp, "batch": n, "fwd_ms": fwd, "bwd_ms": bwd,
            "fwd_cells_per_s": cells / (fwd * 1e-3),
@@ -704,13 +776,20 @@ def check_vcf(body, fa):
             raise AssertionError(f"unexpected GT {gt} at {f[0]}:{pos}")
 
 
+def shape_key(row):
+    """The "B,Lp,batch" key of band.launch_shapes() for a kernel row."""
+    return f"{row['B']},{row['Lp']},{row['batch']}"
+
+
 def kernel_entries(krows, brows, bench, arows, path_launches, path_shapes):
     """The ``kernels`` JSON list: per kernel the launch counts of each path
     (``path_launches``: JSON key -> {kernel: count}), the main path's
     launches by "B,Lp,batch" (``path_shapes``), the time and bound at
     phase 3's largest shape (no PyTorch call computes either kernel's
     function, so ``library_ms`` is null), every phase 3 shape's time,
-    bound and share of it, per band width the phase 7 time at Lp =
+    bound and share of it, the same at each shape the main path launched
+    with its launches (``main_path``; band_bwd's entry also has
+    compact_events' ms there), per band width the phase 7 time at Lp =
     BAND_LP, the bench-shape time and the _align_batch launches per band
     bucket."""
     big = max(krows, key=lambda r: (r["Lp"], r["batch"]))
@@ -736,6 +815,15 @@ def kernel_entries(krows, brows, bench, arows, path_launches, path_shapes):
                 "bound_by": r[f"{key}_bound_by"],
                 "share": r[f"{key}_bound_ms"] / r[f"{key}_ms"]}
                 for r in krows],
+            "main_path": [{
+                "B": r["B"], "Lp": r["Lp"], "batch": r["batch"],
+                "launches": path_shapes[name][shape_key(r)],
+                "ms": r[f"{key}_ms"], "bound_ms": r[f"{key}_bound_ms"],
+                **({"wrapper_ms": r["bwd_wrapper_ms"],
+                    "compact_events_ms": r["compact_ms"],
+                    "compact_events_host_ms": r["compact_host_ms"]}
+                   if key == "bwd" else {})}
+                for r in krows if shape_key(r) in path_shapes[name]],
             "bands": [{
                 "B": r["B"], "Lp": r["Lp"], "batch": r["batch"],
                 "ms": r[f"{key}_ms"], "plain_ms": r[f"{key}_plain_ms"],
@@ -779,6 +867,7 @@ def main() -> int:
     krows = check_kernels(KERNEL_SHAPES)
     check_configs()
     check_offband_walk(256)
+    check_long_runs(256)
     print(guard("3"), flush=True)
 
     # phase 4's contig stays for phase 6 (c); the directory's finalizer
@@ -893,10 +982,12 @@ def main() -> int:
     brows = check_kernels(BAND_SHAPES)
     bench = bench_kernels()
     walks = {b: check_offband_walk(b) for b in WALK_BANDS}
+    long_runs = {b: check_long_runs(b) for b in WALK_BANDS}
     arows = run_align_batch()
     print(f"band widths: both kernels bit-equal at B={list(BANDS)}, "
           f"{sum(r['escape'] for r in brows)} batches with an escape pair; "
-          f"walks off band {walks}; phase 7 took "
+          f"walks off band {walks}; long-run reloads {long_runs}; phase 7 "
+          f"took "
           f"{time.perf_counter() - t7:.1f} s", flush=True)
     print(guard("7"), flush=True)
 

@@ -63,7 +63,9 @@ def main() -> None:
                 opt, wins, device = ctxs[cid]
                 res = ("ok", _range_worker((opt, wins, first_k, count,
                                             device)))
-            except Exception:
+            except BaseException:
+                # SystemExit / KeyboardInterrupt from a range too: reply and
+                # stay in the pool, as the reference worker does
                 res = ("err", traceback.format_exc())
             pickle.dump(res, outp, protocol=pickle.HIGHEST_PROTOCOL)
             outp.flush()

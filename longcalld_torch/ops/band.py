@@ -261,10 +261,14 @@ def banded_dp_plain(P, Tband, plen, tlen, dlo, B: int, Lp: int, x: int,
 # -------------------------------------------------------------- traceback
 
 
-def backward_resolve(tbs, plen, tlen, dlo, finals, B: int, Lp: int):
+def backward_resolve(tbs, plen, tlen, dlo, finals, B: int, Lp: int,
+                     reloads=None):
     """Traceback walk.  Returns (packed (Lp, batch) int32 = op<<14 |
     min(n_ins, 16383) for rows Lp..1, b0 (batch,) int32), exactly
-    backward_resolve_pallas's outputs."""
+    backward_resolve_pallas's outputs.  ``reloads``, a (1,) int32 tensor
+    on the same CUDA device, gets the kernel's synchronous window reloads
+    added to it (tools/time_band_bwd.py); the plain version has no
+    windows and leaves it as it is."""
     if tbs.device.type == "cpu":
         packed, b0, _ = backward_resolve_plain(tbs, plen, tlen, dlo, finals,
                                                B, Lp)
@@ -277,13 +281,19 @@ def backward_resolve(tbs, plen, tlen, dlo, finals, B: int, Lp: int):
     for name, t in (("plen", plen), ("tlen", tlen), ("dlo", dlo)):
         _check(t, name, torch.int32, (batch,), dev)
     _check(finals, "finals", torch.int32, (batch, 5), dev)
+    if tbs.data_ptr() % 16:
+        raise ValueError("tbs must be 16-byte aligned (the kernel copies "
+                         "16-byte chunks of it)")
+    if reloads is not None:
+        _check(reloads, "reloads", torch.int32, (1,), dev)
     packed = torch.empty((Lp, batch), dtype=torch.int32, device=dev)
     b0 = torch.empty((batch,), dtype=torch.int32, device=dev)
     lib = kbuild.load()
     with torch.cuda.device(dev):
         err = lib.lcd_band_bwd(
             tbs.data_ptr(), plen.data_ptr(), tlen.data_ptr(), dlo.data_ptr(),
-            finals.data_ptr(), packed.data_ptr(), b0.data_ptr(), batch, B, Lp,
+            finals.data_ptr(), packed.data_ptr(), b0.data_ptr(),
+            None if reloads is None else reloads.data_ptr(), batch, B, Lp,
             torch.cuda.current_stream(dev).cuda_stream)
     kbuild.check(err, "band_bwd")
     _count("band_bwd", (B, Lp, batch))

@@ -34,8 +34,9 @@ SIGNATURES = {
     # P, Tband, plen, tlen, dlo, tbs, finals, edge_min,
     # batch, B, Lp, x, o1, e1, o2, e2, wpp, ppc, stream
     "lcd_band_fwd": [_P] * 8 + [_I] * 10 + [_P],
-    # tbs, plen, tlen, dlo, finals, packed, b0, batch, B, Lp, stream
-    "lcd_band_bwd": [_P] * 7 + [_I] * 3 + [_P],
+    # tbs, plen, tlen, dlo, finals, packed, b0, reload_count (nullable),
+    # batch, B, Lp, stream
+    "lcd_band_bwd": [_P] * 8 + [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()

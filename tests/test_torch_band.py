@@ -22,9 +22,10 @@ import jax.numpy as jnp  # noqa: E402
 from longcalld_torch.ops import band  # noqa: E402
 from longcalld_torch.ops.convert import from_numpy  # noqa: E402
 from longcalld_tpu.ops import wfa  # noqa: E402
-from longcalld_tpu.ops.pallas_band import (backward_resolve_pallas,  # noqa
-                                           banded_dp_pallas)
-from torch_helpers import random_walk_inputs  # noqa: E402
+from longcalld_tpu.ops.pallas_band import (  # noqa: E402
+    ROWS_PER_STEP, backward_resolve_pallas, banded_dp_pallas)
+from torch_helpers import (LONG_CHAIN, long_run_rows,  # noqa: E402
+                           random_walk_inputs)
 
 X, O1, E1, O2, E2 = 4, 4, 2, 24, 1
 CPU = torch.device("cpu")
@@ -57,8 +58,9 @@ def _escape_pair(rng, B, Lp):
     return p, t
 
 
-def _build(rng, n_pairs, B, Lp, empty=False, escape=False):
-    """Numpy inputs exactly as BatchAligner._submit_batch builds them."""
+def _build(rng, n_pairs, B, Lp, empty=False, escape=False, full=False):
+    """Numpy inputs exactly as BatchAligner._submit_batch builds them;
+    ``full`` makes pair 2 as long as the batch (plen == Lp)."""
     pairs = []
     for _ in range(n_pairs):
         L = int(rng.integers(3, Lp))
@@ -71,6 +73,9 @@ def _build(rng, n_pairs, B, Lp, empty=False, escape=False):
         pairs[0] = (np.zeros(0, np.uint8), rng.integers(0, 4, 5)
                     .astype(np.uint8))
         pairs[1] = (np.zeros(1, np.uint8), np.zeros(1, np.uint8))
+    if full:
+        p = rng.integers(0, 4, Lp).astype(np.uint8)
+        pairs[2] = (p, _mutate(rng, p, 4, 2))
     if escape:
         pairs[-1] = _escape_pair(rng, B, Lp)
     n = len(pairs)
@@ -123,7 +128,13 @@ def _check_backward(tbs, finals, arrays, B, Lp):
     assert packed_t.dtype == torch.int32 and b0_t.dtype == torch.int32
     np.testing.assert_array_equal(packed_t.numpy(), packed_l)
     np.testing.assert_array_equal(b0_t.numpy(), np.asarray(b0_l))
-    np.testing.assert_array_equal(b0_t.numpy(), np.asarray(b0_p))
+    # The two JAX forms differ on one b0: when ROWS_PER_STEP does not
+    # divide Lp, the Pallas kernel's padded tail reaches row 0 and starts
+    # a plen == 0 walk there (b0 = b_final), where the lax form (and the
+    # port) never starts it (b0 = 0).  The main path's Lp buckets are
+    # multiples of ROWS_PER_STEP.
+    same = (np.asarray(plen) != 0) | (Lp % ROWS_PER_STEP == 0)
+    np.testing.assert_array_equal(b0_t.numpy()[same], np.asarray(b0_p)[same])
     _, _, off_edge = band.backward_resolve_plain(*targs, B, Lp)
     return off_edge.numpy()
 
@@ -158,37 +169,93 @@ def test_band_escape_pair(B, Lp):
     assert int(edge[-1]) < int(fin[-1].min()), "escape pair stayed in band"
 
 
-@pytest.mark.parametrize("seed,B", [
-    pytest.param(0, 128, id="0"), pytest.param(1, 128, id="1"),
-    pytest.param(2, 128, id="2"), pytest.param(3, 1024, id="3-B1024"),
-    pytest.param(4, 384, id="4-B384"), pytest.param(5, 4096, id="5-B4096"),
+# the long-run cases: Lp not a multiple of 32, plen 0, 1 and Lp in one
+# batch; batch 1 and 3 are pairs (2,) and (2, 3, 5) of an 11-pair batch
+@pytest.mark.parametrize("seed,B,Lp,batch,long_runs", [
+    pytest.param(0, 128, 64, 16, False, id="0"),
+    pytest.param(1, 128, 64, 16, False, id="1"),
+    pytest.param(2, 128, 64, 16, False, id="2"),
+    pytest.param(3, 1024, 64, 16, False, id="3-B1024"),
+    pytest.param(4, 384, 64, 16, False, id="4-B384"),
+    pytest.param(5, 4096, 64, 16, False, id="5-B4096"),
+    pytest.param(6, 256, 1000, 67, True, id="6-B256-Lp1000-long"),
+    pytest.param(7, 1024, 33, 67, True, id="7-B1024-Lp33-long"),
+    pytest.param(8, 256, 1000, 1, True, id="8-B256-Lp1000-batch1-long"),
+    pytest.param(9, 384, 1000, 3, True, id="9-B384-Lp1000-batch3-long"),
+    pytest.param(10, 4096, 33, 3, True, id="10-B4096-Lp33-batch3-long"),
 ])
-def test_walk_on_random_traceback_bytes(seed, B):
+def test_walk_on_random_traceback_bytes(seed, B, Lp, batch, long_runs):
     """Random traceback bytes and finals drive the walk through every
     branch and off both band edges (tests/torch_helpers.py:
     random_walk_inputs); the one-hot forms encode the off-band position
     as an all-zero vector.  The port must match both JAX forms bit for
-    bit, and walks must actually have left through each edge."""
+    bit, and walks must actually have left through each edge.  With
+    ``long_runs`` the plain walk's output must show the long insertion
+    chain and the long D run that take the CUDA kernel out of its
+    shared-memory window (chip_smoke.py runs the same inputs on the
+    card)."""
     rng = np.random.default_rng(seed)
-    tbs, plen, tlen, dlo, finals = random_walk_inputs(rng, B, 64, 16)
+    arrays = random_walk_inputs(rng, B, Lp, max(batch, 11), spread=60,
+                                long_runs=long_runs)
+    if batch < 9:
+        keep = [2, 3, 5][:batch]
+        arrays = tuple(np.ascontiguousarray(a[:, keep] if a.ndim == 3
+                                            else a[keep]) for a in arrays)
+    tbs, plen, tlen, dlo, finals = arrays
     off_edge = _check_backward(tbs, finals, (None, None, plen, tlen, dlo),
-                               B, 64)
-    assert (off_edge == band.OFF_LEFT).any()
-    assert (off_edge == band.OFF_RIGHT).any()
+                               B, Lp)
+    if batch >= 9:
+        assert (off_edge == band.OFF_LEFT).any()
+        assert (off_edge == band.OFF_RIGHT).any()
+    if long_runs:
+        packed, _, _ = band.backward_resolve_plain(
+            *from_numpy(arrays, CPU), B, Lp)
+        chain, d_run = _long_runs(packed.numpy(), Lp)
+        k2, k3 = (2, 3) if batch >= 9 else (0, 1)   # pairs 2 and 3
+        assert chain[k2] == min(LONG_CHAIN, B - 21) + 1 > 128
+        if batch != 1:
+            # the extending rows, then one D row that ends the run
+            ic, d_rows = long_run_rows(Lp)
+            assert d_run[k3] == d_rows + (ic - d_rows > 1)
+            assert d_run[k3] > 32 or Lp < 64
+        if batch >= 9:
+            assert list(plen[:3]) == [0, 1, Lp]
+
+
+def _long_runs(packed, Lp):
+    """Per pair, the longest insertion chain (n_ins) and the longest run
+    of consecutive D rows in a packed walk output."""
+    n_ins, op = packed & ((1 << 14) - 1), packed >> 14
+    runs = []
+    for col in (op == 2).T:
+        best = cur = 0
+        for d in col:
+            cur = cur + 1 if d else 0
+            best = max(best, cur)
+        runs.append(best)
+    return n_ins.max(axis=0), runs
 
 
 # the warp design's widths (B <= 512), at batches the pairs per CTA do not
-# divide (1, 3, 70), Lp 256 and 1024; plen == 0 dummies where the batch
-# holds two pairs, a band-escape pair where Lp leaves it room
+# divide (1, 3, 67, 70), Lp 256 and 1024 and, not a multiple of 32, 33 and
+# 1000; plen == 0 dummies where the batch holds two pairs, a band-escape
+# pair where Lp leaves it room, and in the Lp 33 / 1000 cases a pair of
+# plen == Lp where the batch holds three
 @pytest.mark.parametrize("B,batch,Lp", [
     (128, 1, 256), (128, 70, 1024), (256, 3, 1024), (256, 70, 256),
     (256, 1, 1024), (384, 3, 256), (384, 70, 1024), (512, 1, 1024),
     (512, 70, 256), (512, 3, 1024),
+    (256, 67, 1000), (256, 3, 33), (256, 1, 1000), (128, 67, 33),
+    (512, 3, 1000), (384, 67, 33),
 ])
 def test_warp_widths_match_jax(B, batch, Lp):
     rng = np.random.default_rng(B + batch + Lp)
     escape = Lp >= 2 * B
-    arrays = _build(rng, batch, B, Lp, empty=batch >= 2, escape=escape)
+    full = Lp % 32 != 0 and batch >= 3
+    arrays = _build(rng, batch, B, Lp, empty=batch >= 2, escape=escape,
+                    full=full)
+    if full:
+        assert list(arrays[2][:3]) == [0, 1, Lp]
     tbs, finals = _check_forward(arrays, B, Lp)
     _check_backward(tbs, finals, arrays, B, Lp)
     if escape:

@@ -224,6 +224,72 @@ def test_worker_error_propagates_and_pool_survives(contig, jax_ref):
     assert _call(tpl.run_call, good) == jax_ref
 
 
+_SYSTEM_EXIT = r"""
+import importlib.abc, importlib.machinery, sys
+
+class ExitOnMarker(importlib.abc.MetaPathFinder):
+    # both packages' pipeline modules get a _range_worker that raises
+    # SystemExit(1) for a run whose first BAM is named exit.bam
+    def find_spec(self, name, path=None, target=None):
+        if name not in ("longcalld_torch.core.pipeline",
+                        "longcalld_tpu.core.pipeline"):
+            return None
+        spec = importlib.machinery.PathFinder.find_spec(name, path)
+        run = spec.loader.exec_module
+
+        def exec_module(module):
+            run(module)
+            real = module._range_worker
+
+            def _range_worker(payload):
+                if payload[0].in_bam_fns[0].endswith("exit.bam"):
+                    raise SystemExit(1)
+                return real(payload)
+            module._range_worker = _range_worker
+        spec.loader.exec_module = exec_module
+        return spec
+
+sys.meta_path.insert(0, ExitOnMarker())
+"""
+
+
+def test_worker_system_exit_propagates_and_pool_survives(contig, jax_ref,
+                                                         tmp_path,
+                                                         monkeypatch):
+    """A SystemExit raised by _range_worker (utils/log.py:error_exit, a
+    KeyboardInterrupt alike) comes back to the parent as RuntimeError
+    with the worker's traceback, in the port's pool as in the JAX
+    package's, and the same workers then run a good call to the same
+    records.  The workers start with a sitecustomize that makes the
+    range worker exit for a marked run."""
+    from longcalld_tpu.core import procpool as jprocpool
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(_SYSTEM_EXIT)
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join(
+        [str(site), ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    wins = [Window(0, "chr1", 1, 25_000, 0, 0)]
+    for pool, run_call, conv in ((procpool, tpl.run_call, port_opts),
+                                 (jprocpool, jpl.run_call, lambda o: o)):
+        pool.shutdown()            # workers start anew, with the hook
+        try:
+            good = _opt(*contig, host_procs=4, n_threads=4, use_device=False)
+            bad = conv(dataclasses.replace(
+                good, in_bam_fns=[str(tmp_path / "exit.bam")]))
+            with pytest.raises(RuntimeError,
+                               match="range worker failed(.|\n)*SystemExit"):
+                list(pool.imap_ranges(bad, wins, [(0, 1)], n_workers=4))
+            with pool._LOCK:
+                workers = [w for ws in pool._POOLS.values() for w in ws]
+            assert len(workers) == 4 and all(w.alive() for w in workers)
+            assert _call(run_call, good) == jax_ref
+            with pool._LOCK:
+                after = [w for ws in pool._POOLS.values() for w in ws]
+            assert after == workers    # the same four processes
+        finally:
+            pool.shutdown()
+
+
 def test_device_worker_without_card_raises(contig):
     """A worker asked for cuda:0 that sees no card fails the range; it
     never runs host-only.  The parent refuses a CUDA device it lacks

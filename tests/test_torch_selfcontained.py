@@ -68,7 +68,7 @@ def _files(top, exts):
 def _port_python():
     return (["longcalld_torch/" + f for f in _files(PORT, (".py",))]
             + ["chip_smoke.py", "tools/time_band_fwd.py",
-               "tests/torch_helpers.py"])
+               "tools/time_band_bwd.py", "tests/torch_helpers.py"])
 
 
 def _imports(tree):

@@ -115,7 +115,7 @@ def build_contig(d, seed, length, coverage=20, read_len=10_000,
     return fa, bam, n_reads, len(truth)
 
 
-def random_walk_inputs(rng, B, Lp, n, spread=20):
+def random_walk_inputs(rng, B, Lp, n, spread=20, long_runs=False):
     """Inputs of the band walk (tbs, plen, tlen, dlo, finals) made of
     random traceback bytes and finals.  Extension bits are set often, so
     the walk takes every branch and falls off either band edge, which real
@@ -125,7 +125,14 @@ def random_walk_inputs(rng, B, Lp, n, spread=20):
     full-length pairs: the first ends at b_final in {0, 1, 2} in an I
     state, so it leaves through the left edge (at b_final = 0 always), the
     second at b_final in {B-1, B-2, B-3} in a D state, so it leaves through
-    the right edge (at B-1 always).  Needs n >= 9."""
+    the right edge (at B-1 always).  Needs n >= 9.
+
+    ``long_runs`` makes pairs 0 and 1 plen 0 and 1 and replaces pairs 2
+    and 3 by full-length walks of fixed bytes (see _plant_long_runs): pair
+    2 collapses an insertion chain of LONG_CHAIN + 1 columns (fewer where
+    the band is narrower) and pair 3 takes a run of up to LONG_D + 1 D
+    rows, longer than the CUDA kernel's window of 128 columns by 32 rows
+    in either direction."""
     src = rng.integers(0, 5, (Lp + 1, n, B), dtype=np.uint8)
     bits = rng.integers(0, 10, (Lp + 1, n, B, 4), dtype=np.uint8) \
         < np.array([9, 9, 6, 6], dtype=np.uint8)
@@ -149,7 +156,46 @@ def random_walk_inputs(rng, B, Lp, n, spread=20):
         dlo[idx] = tlen[idx] - plen[idx] - b_final
         finals[idx] = 9
         finals[idx, first] = 1
+    if long_runs:
+        plen[:2] = (0, 1)
+        _plant_long_runs(tbs, plen, tlen, dlo, finals, B, Lp)
     return tbs, plen, tlen, dlo, finals
+
+
+LONG_CHAIN = 150      # columns of the long insertion chain (pair 2)
+LONG_D = 45           # rows of the long D run (pair 3)
+
+
+def long_run_rows(Lp):
+    """(row of the chain, D rows) of the long-run pairs at this Lp: the
+    chain 40 rows below plen (mid-way down the kernel's second window of
+    32 rows) or half way down a short pair, and the D run right below it,
+    down to row 1 at most."""
+    ic = Lp - min(40, Lp // 2)
+    return ic, min(LONG_D, ic - 1)
+
+
+def _plant_long_runs(tbs, plen, tlen, dlo, finals, B, Lp):
+    """Pairs 2 and 3 as full-length M walks (every byte 0) that start in
+    M: pair 2 at b_final = B - 20 turns into I1 at row ic and collapses a
+    chain of min(LONG_CHAIN, b_final - 1) + 1 columns on row ic - 1; pair
+    3 at b_final = 10 turns into D1 at row ic and keeps extending for the
+    D rows of long_run_rows, so its position drifts right by as many
+    columns."""
+    ic, d_rows = long_run_rows(Lp)
+    for k, b_final in ((2, B - 20), (3, 10)):
+        tbs[:, k, :] = 0
+        plen[k] = Lp
+        dlo[k] = tlen[k] - Lp - b_final
+        finals[k] = 9
+        finals[k, 4] = 1                       # PERM M: start in state M
+    p = B - 20
+    chain = min(LONG_CHAIN, p - 1)
+    tbs[ic, 2, p] = 1                          # source I1
+    tbs[ic - 1, 2, p - chain + 1:p + 1] = 1 << 3    # I1 extends; stops at
+    # column p - chain
+    tbs[ic, 3, 10] = 3                         # source D1
+    tbs[ic - d_rows:ic, 3, :] = 1 << 5         # D1 extends on every row
 
 
 # SV sizes of sv_pairs: with BatchAligner's band_pad of 64 their band
