@@ -52,11 +52,14 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      B in BANDS (multiples of 128 from 128 to 4096, the Pallas kernels'
      rule), Lp in {256, 2048}, batch 64, plus B = Lp = 4096, bit-equal,
      with plen == 0 pairs, dummies and, where the pattern is long enough
-     for its path to leave the band, a band-escape pair; (b) CUDA-event ms
-     and DP cells/s of both kernels at bench.py's microbench shape (batch
-     64, B 2048, Lp 2000); (c) the walk on random traceback bytes at B
-     1024 and 4096, bit-equal, with walks off the left edge and off the
-     right edge counted apart (each must happen), and on the long runs at
+     for its path to leave the band, a band-escape pair; (b) bench_torch.py's
+     kernel leg: CUDA-event ms and DP cells/s of both kernels at bench.py's
+     microbench shape (batch 64, B 2048, Lp 2000), and the full path,
+     BatchAligner.align_many on bench.py's 64 pairs of 2000 bp, whose
+     results must equal the same aligner's on CPU tensors; (c) the walk
+     on random traceback bytes at B 1024 and 4096, bit-equal, with walks
+     off the left edge and off the right edge counted apart (each must
+     happen), and on the long runs at
      B 1024 and 4096, Lp 33 and 1000, as in phase 3 (c); (d) BatchAligner.
      _align_batch on cuda:0 over seeded SV-like pairs (band buckets 1024,
      4096 and 5128), equal to the same aligner on CPU tensors (the plain
@@ -431,34 +434,36 @@ def check_long_runs(B, n=16):
 
 
 def bench_kernels():
-    """Phase 7 (b): CUDA-event ms of both kernels at bench.py's microbench
-    shape and inputs (random P and T, plen = tlen = Lp, dlo = -B/2), with
-    DP cells/s = batch * (Lp + 1) * B / time (bench.py:188,254)."""
+    """Phase 7 (b): bench_torch.py's kernel leg on cuda:0 (both kernels at
+    bench.py's microbench shape in CUDA-event ms and DP cells/s, and the
+    full path, BatchAligner.align_many on bench.py's 64 pairs), then the
+    full path's results against the same aligner on CPU tensors (the
+    plain versions): equal scores, CIGARs and alignments."""
     import torch
 
-    from longcalld_torch.ops import band
-    from longcalld_torch.ops.convert import from_numpy
+    import bench_torch
+    from longcalld_torch.ops import wfa
 
-    B, Lp, n = BENCH_SHAPE
-    rng = np.random.default_rng(0)
-    P, Tband, plen, tlen, dlo = from_numpy((
-        rng.integers(0, 4, (n, Lp)).astype(np.int8),
-        rng.integers(0, 4, (n, Lp + B)).astype(np.int8),
-        np.full(n, Lp, np.int32), np.full(n, Lp, np.int32),
-        np.full(n, -B // 2, np.int32)), torch.device("cuda:0"))
-    dp = (B, Lp, X, O1, E1, O2, E2)
-    tbs, fin, _ = band.banded_dp(P, Tband, plen, tlen, dlo, *dp)
-    fwd = cuda_ms(lambda: band.banded_dp(P, Tband, plen, tlen, dlo, *dp), 10)
-    bwd = cuda_ms(lambda: band.backward_resolve(tbs, plen, tlen, dlo, fin, B,
-                                                Lp), 10, queued=True)
-    cells = n * (Lp + 1) * B
-    row = {"B": B, "Lp": Lp, "batch": n, "fwd_ms": fwd, "bwd_ms": bwd,
-           "fwd_cells_per_s": cells / (fwd * 1e-3),
-           "bwd_cells_per_s": cells / (bwd * 1e-3)}
-    print(f"bench shape (B={B}, Lp={Lp}, batch={n}): band_fwd {fwd:.3f} ms "
-          f"({row['fwd_cells_per_s']:.4g} DP cells/s), band_bwd {bwd:.3f} ms "
-          f"({row['bwd_cells_per_s']:.4g} cells/s)", flush=True)
-    return row
+    leg, pairs, res = bench_torch.kernel_leg(torch.device("cuda:0"))
+    plain = wfa.BatchAligner(use_device=True, device=torch.device("cpu"),
+                             device_min_cells=1)
+    for k, (r, q) in enumerate(zip(res, plain.align_many(pairs),
+                                   strict=True)):
+        if not (r.score == q.score and np.array_equal(r.cigar, q.cigar)
+                and np.array_equal(r.pattern_alg, q.pattern_alg)
+                and np.array_equal(r.text_alg, q.text_alg)):
+            raise AssertionError(f"align_many on the card differs from its "
+                                 f"plain path at pair {k}")
+    full = leg["full_path"]
+    print(f"bench shape (B={leg['B']}, Lp={leg['Lp']}, batch={leg['batch']})"
+          f": band_fwd {leg['band_fwd']['ms']:.3f} ms "
+          f"({leg['band_fwd']['cells_per_s']:.4g} DP cells/s), band_bwd "
+          f"{leg['band_bwd']['ms']:.4f} ms "
+          f"({leg['band_bwd']['cells_per_s']:.4g} cells/s); full path "
+          f"{full['wall_s_per_batch'] * 1e3:.2f} ms for {full['pairs']} pairs"
+          f" ({full['product_cells_per_s']:.4g} product cells/s, launches "
+          f"{full['launch_shapes']}), equal to its plain path", flush=True)
+    return leg
 
 
 def run_align_batch():
@@ -567,11 +572,13 @@ def run_main_path(fa, bam):
 
 
 class MemPeak:
-    """Peak card memory in use (total - free, all processes) sampled from
-    torch.cuda.mem_get_info every 50 ms while the block runs."""
+    """Peak memory in use on ``device`` (total - free, all processes)
+    sampled from torch.cuda.mem_get_info every 50 ms while the block
+    runs."""
 
-    def __init__(self):
+    def __init__(self, device=0):
         import threading
+        self.device = device
         self.peak = 0
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._poll, daemon=True)
@@ -579,7 +586,7 @@ class MemPeak:
     def _poll(self):
         import torch
         while not self._stop.is_set():
-            free, total = torch.cuda.mem_get_info(0)
+            free, total = torch.cuda.mem_get_info(self.device)
             self.peak = max(self.peak, total - free)
             self._stop.wait(0.05)
 
@@ -832,8 +839,9 @@ def kernel_entries(krows, brows, bench, arows, path_launches, path_shapes):
                 for r in brows if r["Lp"] == BAND_LP],
             "bench_shape": {"B": bench["B"], "Lp": bench["Lp"],
                             "batch": bench["batch"],
-                            "ms": bench[f"{key}_ms"],
-                            "cells_per_s": bench[f"{key}_cells_per_s"]},
+                            "ms": bench[name]["ms"],
+                            "cells_per_s": bench[name]["cells_per_s"],
+                            "bound_ms": bench[name]["bound_ms"]},
             "align_batch_launches": {str(r["B"]): r["launches"][name]
                                      for r in arows}})
     return kernels

@@ -50,12 +50,39 @@ def _same(a, b, what: str) -> None:
         raise AssertionError(f"{what}: {bad} differ from the one-device EM")
 
 
-def dryrun_multichip(n_devices: int, devices=None) -> None:
+def dryrun_mesh(n_devices: int, devices=None, device=None) -> list:
+    """The dry run's mesh of ``n_devices`` entries: ``devices`` when
+    given; n CPU entries for ``device="cpu"``; otherwise the visible cards
+    from ``device`` (default cuda:0) on, repeated round-robin to n entries
+    where fewer are visible.  Without CUDA it raises
+    (utils/device.py:resolve_device): the dry run never moves to the CPU
+    unasked."""
+    import torch
+
+    from longcalld_torch.parallel.mesh import make_mesh
+    from longcalld_torch.utils.device import resolve_device
+
+    if devices is not None:
+        return make_mesh(n_devices, devices=devices)
+    lead = resolve_device(device)
+    if lead.type == "cpu":
+        return make_mesh(n_devices, lead)
+    count = torch.cuda.device_count()
+    cards = [torch.device("cuda", (lead.index + k) % count)
+             for k in range(min(n_devices, count))]
+    print(f"dry run: {n_devices} mesh entries on {len(cards)} distinct "
+          f"card(s) of {count} visible", flush=True)
+    return make_mesh(n_devices, devices=[cards[k % len(cards)]
+                                         for k in range(n_devices)])
+
+
+def dryrun_multichip(n_devices: int, devices=None, device=None) -> None:
     """Run both mesh shardings on an ``n_devices`` mesh and hold them
     equal to the one-device EM, then run the real pipeline over the mesh.
-    The mesh is ``devices`` when given, else the first n cards when that
-    many are visible, else n CPU entries (as the JAX dry run re-pins the
-    cpu platform when the backend has too few devices).
+    The mesh is ``dryrun_mesh(n_devices, devices, device)``: the given
+    devices, n CPU entries for ``device="cpu"``, else the visible cards
+    (repeated where fewer than n are visible); without CUDA and without
+    ``device="cpu"`` it raises.
 
     1. window data-parallelism: a window batch in blocks over the mesh,
        with the summed phased-read count;
@@ -74,21 +101,13 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
     import json
     import tempfile
 
-    import torch
-
     from longcalld_torch.ops import phase_kernel
     from longcalld_torch.ops.convert import from_numpy
     from longcalld_torch.parallel.mesh import (make_example_window_batch,
-                                               make_mesh,
                                                sharded_window_phase,
                                                window_phase_batch)
 
-    if devices is None:
-        on_cards = (torch.cuda.is_available()
-                    and torch.cuda.device_count() >= n_devices)
-        mesh = make_mesh(n_devices, "cuda:0" if on_cards else "cpu")
-    else:
-        mesh = make_mesh(n_devices, devices=devices)
+    mesh = dryrun_mesh(n_devices, devices, device)
     lead = mesh[0]
 
     # 1. windows over the mesh

@@ -282,5 +282,5 @@ def test_dryrun_multichip_clean():
     """tests/test_multichip.py:52-54 on the port."""
     from longcalld_torch import entry
     before = tpk.sharded_calls()
-    entry.dryrun_multichip(8)
+    entry.dryrun_multichip(8, device="cpu")
     assert tpk.sharded_calls() > before

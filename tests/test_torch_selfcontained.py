@@ -2,7 +2,8 @@
 
 (a) No ``import`` of jax or of the JAX package (longcalld_tpu), at module
     level or inside a function, in any .py under longcalld_torch/, in
-    chip_smoke.py, in tools/time_band_fwd.py or in tests/torch_helpers.py
+    bench_torch.py, chip_smoke.py, tools/time_band_*.py or in
+    tests/torch_helpers.py
     (the test helpers that chip_smoke.py and longcalld_torch/entry.py
     import); one case per file.
 (b) Every module and C source that the port copies from the JAX package
@@ -67,7 +68,7 @@ def _files(top, exts):
 
 def _port_python():
     return (["longcalld_torch/" + f for f in _files(PORT, (".py",))]
-            + ["chip_smoke.py", "tools/time_band_fwd.py",
+            + ["bench_torch.py", "chip_smoke.py", "tools/time_band_fwd.py",
                "tools/time_band_bwd.py", "tests/torch_helpers.py"])
 
 

@@ -1,24 +1,28 @@
 """Helpers shared by the port's tests (tests/test_torch_*.py),
 longcalld_torch/entry.py and chip_smoke.py: VCF bodies, a spy on
 run_call's pool dispatch, the seeded synthetic contig they call, random
-traceback bytes for the band walk and seeded SV-like pairs for the wide
-band buckets.
+traceback bytes for the band walk, seeded SV-like pairs for the wide
+band buckets, and the F1 scoring of bench_torch.py's F1 leg.
 
 The contig builder is a copy of tests/synthcontig.py (build_truth,
 HapMap, apply_ont_errors, write_synth_bam without the r10 error model,
 write_synth_fasta) and tests/util_bam.py (make_record, write_bam) over
 the port's io, so that nothing here imports longcalld_tpu; it writes the
 same FASTA, BAM and BAI bytes for the same seed
-(tests/test_torch_selfcontained.py)."""
+(tests/test_torch_selfcontained.py).  evaluate_f1 and classify_fn_causes
+are copies of tests/synthcontig.py's and tests/fnclassify.py's over the
+port's modules; tests/test_torch_bench.py holds them to equal dicts."""
 
 import contextlib
 import dataclasses
 import os
 import struct
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
+from longcalld_torch import config
+from longcalld_torch.io.bam import CDIFF
 from longcalld_torch.io.bgzf import BgzfWriter
 
 CMATCH, CINS, CDEL, CSOFT = 0, 1, 2, 4
@@ -96,15 +100,22 @@ def phase_window(seed, R=96, V=80, noise=0.03, hp_on=False, no_valid=False):
             valid, hp, hp_ont)
 
 
+def contig_truth(seed, length, margin=2_000):
+    """(reference as nt4 codes, planted variants) of build_contig's
+    contig for this seed and length."""
+    rng = np.random.default_rng(seed)
+    ref4 = rng.integers(0, 4, length).astype(np.uint8)
+    return ref4, build_truth(rng, ref4, margin, length - margin,
+                             sv_per_mb=25)
+
+
 def build_contig(d, seed, length, coverage=20, read_len=10_000,
                  margin=2_000, **bam_kw):
     """A seeded diploid contig of ``length`` bases with planted SNVs,
     indels and ~25 SVs/Mb over [margin, length - margin), and a BAM of
     reads with 0.3% substitutions at ``coverage``.  Returns (FASTA path,
     BAM path, reads written, planted variants)."""
-    rng = np.random.default_rng(seed)
-    ref4 = rng.integers(0, 4, length).astype(np.uint8)
-    truth = build_truth(rng, ref4, margin, length - margin, sv_per_mb=25)
+    ref4, truth = contig_truth(seed, length, margin)
     fa = os.path.join(str(d), f"synth{length}.fa")
     bam = os.path.join(str(d), f"synth{length}.bam")
     write_synth_fasta(fa, "chr1", ref4)
@@ -585,3 +596,307 @@ def write_synth_fasta(path: str, tname, ref4) -> None:
             off_bytes += len(ascii_seq) + (len(ascii_seq) + 59) // 60
     with open(path + ".fai", "w") as fh:
         fh.writelines(fai)
+
+
+# ---- the F1 evaluator and the false-negative classifier (copies of
+# tests/synthcontig.py:evaluate_f1 with its helpers, and of
+# tests/fnclassify.py over the port's modules)
+
+NT4 = {"A": 0, "C": 1, "G": 2, "T": 3, "N": 4}
+
+
+def _norm_indel(ref_str: str, alt_str: str):
+    """Strip the shared anchor base; returns (kind, payload_len, seq)."""
+    if len(alt_str) > len(ref_str):
+        return "ins", len(alt_str) - len(ref_str)
+    return "del", len(ref_str) - len(alt_str)
+
+
+def _left_norm_del(ref4: np.ndarray, anchor: int, ln: int) -> int:
+    """Canonical (leftmost) anchor for a deletion of ref[anchor+1 ..
+    anchor+ln]: shift left while the base entering the deleted window
+    from the left equals the one leaving it on the right."""
+    s = anchor + 1
+    while s > 1 and ref4[s - 1] == ref4[s + ln - 1]:
+        s -= 1
+    return s - 1
+
+
+def _left_norm_ins(ref4: np.ndarray, anchor: int, seq) -> int:
+    """Canonical (leftmost) anchor for an insertion after ``anchor``:
+    rotate the inserted sequence left past equal reference bases."""
+    seq = list(np.asarray(seq)) if not isinstance(seq, int) else None
+    a = anchor
+    if seq is None:
+        return a
+    k = 0
+    while a > 0 and ref4[a] == seq[(len(seq) - 1 - k) % len(seq)]:
+        a -= 1
+        k += 1
+    return a
+
+
+def evaluate_f1(vcf_body: List[str], truth: List[tuple],
+                beg: int, end: int, ref4: np.ndarray = None,
+                sv_pos_tol: int = 60,
+                sv_len_tol: float = 0.25,
+                return_fns: bool = False) -> Dict[str, dict]:
+    """Score called records against the planted truth.
+
+    snv: exact pos + alt base.  indel (<50): kind + length at the
+    LEFT-NORMALIZED position (the caller left-aligns gaps, so planted and
+    called anchors differ by homopolymer/repeat shifts that are pure
+    representation, not errors — the same reason hap.py-style truth
+    comparison normalizes).  sv (>=50): pos within sv_pos_tol, kind
+    match, length within sv_len_tol.
+    Returns {class: {tp, fp, fn, precision, recall, f1}}."""
+    def clas(kind, payload):
+        if kind == "snv":
+            return "snv"
+        ln = payload if isinstance(payload, int) else len(payload)
+        return "sv" if ln >= 50 else "indel"
+
+    truth_in = [(p, k, pl, gt) for p, k, pl, gt in truth if beg <= p < end]
+    t_by_class: Dict[str, list] = {"snv": [], "indel": [], "sv": []}
+    for p, k, pl, gt in truth_in:
+        t_by_class[clas(k, pl)].append((p, k, pl))
+    calls: Dict[str, list] = {"snv": [], "indel": [], "sv": []}
+    for ln_ in vcf_body:
+        if ln_.startswith("#"):
+            continue
+        f = ln_.split("\t")
+        pos1 = int(f[1])
+        ref_s, alt_s = f[3], f[4].split(",")[0]
+        if len(ref_s) == 1 and len(alt_s) == 1:
+            calls["snv"].append((pos1 - 1, NT4.get(alt_s.upper(), 4)))
+        else:
+            kind, ln = _norm_indel(ref_s, alt_s)
+            a = pos1 - 1
+            if ref4 is not None:
+                if kind == "ins":
+                    seq = [NT4.get(c, 4) for c in alt_s[1:].upper()]
+                    a = _left_norm_ins(ref4, a, seq)
+                else:
+                    a = _left_norm_del(ref4, a, ln)
+            calls["sv" if ln >= 50 else "indel"].append((a, kind, ln))
+    out = {}
+    fns: Dict[str, list] = {"snv": [], "indel": [], "sv": []}
+    # snv: truth pos is 0-based planted position; VCF pos1-1 == pos
+    t_snv = {(p, pl) for p, k, pl in t_by_class["snv"]}
+    c_snv = set(calls["snv"])
+    tp = len(t_snv & c_snv)
+    out["snv"] = _prf(tp, len(c_snv) - tp, len(t_snv) - tp)
+    fns["snv"] = sorted(t_snv - c_snv)
+    # indel: left-normalized anchor + kind + length on both sides
+    t_ind = set()
+    for p, k, pl in t_by_class["indel"]:
+        ln = pl if isinstance(pl, (int, np.integer)) else len(pl)
+        a = p
+        if ref4 is not None:
+            a = (_left_norm_ins(ref4, p, pl) if k == "ins"
+                 else _left_norm_del(ref4, p, int(pl)))
+        t_ind.add((a, k, int(ln)))
+    c_ind = set(calls["indel"])
+    tp = len(t_ind & c_ind)
+    out["indel"] = _prf(tp, len(c_ind) - tp, len(t_ind) - tp)
+    fns["indel"] = sorted(t_ind - c_ind)
+    # sv: fuzzy match
+    t_sv = [(p, k, pl if isinstance(pl, int) else len(pl))
+            for p, k, pl in t_by_class["sv"]]
+    used = [False] * len(t_sv)
+    tp = 0
+    fp = 0
+    for cp, ck, cl in calls["sv"]:
+        hit = False
+        for i, (p, k, ln) in enumerate(t_sv):
+            if used[i] or k != ck:
+                continue
+            if abs(cp - p) <= sv_pos_tol and \
+                    abs(cl - ln) <= sv_len_tol * max(cl, ln):
+                used[i] = True
+                tp += 1
+                hit = True
+                break
+        if not hit:
+            fp += 1
+    out["sv"] = _prf(tp, fp, len(t_sv) - tp)
+    fns["sv"] = sorted(t for t, u in zip(t_sv, used) if not u)
+    if return_fns:
+        return out, fns
+    return out
+
+
+def _prf(tp: int, fp: int, fn: int) -> dict:
+    p = tp / (tp + fp) if tp + fp else 0.0
+    r = tp / (tp + fn) if tp + fn else 0.0
+    f1 = 2 * p * r / (p + r) if p + r else 0.0
+    return {"tp": tp, "fp": fp, "fn": fn, "precision": round(p, 4),
+            "recall": round(r, 4), "f1": round(f1, 4)}
+
+
+def _match_window(kind: str) -> int:
+    return 0 if kind == "snv" else 60
+
+
+def _event_matches(kind: str, length: int, pos1: int, e_pos: int,
+                   e_type: int, e_len: int, tol_pos: int) -> bool:
+    if kind == "snv":
+        return e_type == CDIFF and e_pos == pos1
+    want = CINS if kind == "ins" else CDEL
+    if e_type != want or abs(e_pos - pos1) > tol_pos:
+        return False
+    lo, hi = min(e_len, length), max(e_len, length)
+    return lo >= 0.7 * hi
+
+
+def _classify_one(opt, chunk, kind: str, pos0: int, length: int,
+                  made_positions: Dict[int, list]) -> str:
+    pos1 = pos0 + 1                     # digar/cand coordinates are 1-based
+    tol = _match_window("snv" if kind == "snv" else "indel")
+    if kind != "snv":
+        tol = max(tol, length)
+
+    # 1. read-event support straight from the digars
+    n_alt = 0
+    n_cov = 0
+    for ri in chunk.order:
+        d = chunk.digars[ri]
+        if d is None:
+            continue
+        if d.beg > pos1 or d.end < pos1:
+            continue
+        n_cov += 1
+        m = d.var_mask()
+        for k in np.nonzero(m)[0]:
+            if _event_matches(kind, length, pos1, int(d.pos[k]),
+                              int(d.type[k]), int(d.len[k]), tol):
+                n_alt += 1
+                break
+    if n_cov == 0:
+        return "no_reads_in_window"
+    if n_alt == 0:
+        return "no_read_event_support"
+
+    # 2. emitted-but-unmatched: a same-type record exists nearby
+    #    (left-normalization / representation difference, not a miss)
+    for mp in made_positions.get(kind, []):
+        if abs(mp - pos1) <= max(tol, 1 if kind == "snv" else 25):
+            return "called_not_matched"
+
+    # 3. the final candidate list
+    cand = chunk.cand_vars
+    cate = chunk.var_cate
+    found = -1
+    if cand is not None:
+        want_t = CDIFF if kind == "snv" else (CINS if kind == "ins"
+                                              else CDEL)
+        for i in range(len(cand)):
+            cp = int(cand.pos[i])
+            if cand.type[i] != want_t:
+                continue
+            if kind == "snv":
+                if cp == pos1:
+                    found = i
+                    break
+            elif abs(cp - pos1) <= max(tol, 25):
+                e_len = int(cand.alt_len[i] if kind == "ins"
+                            else cand.ref_len[i])
+                lo, hi = min(e_len, length), max(e_len, length)
+                if lo >= 0.7 * hi:
+                    found = i
+                    break
+    if found >= 0:
+        c = int(cate[found])
+        if c == config.CAND_SOMATIC_VAR:
+            return "demoted_low_af_somatic"
+        if cand.hap_cons_alle is not None and \
+                cand.hap_cons_alle[found, 1] <= 0 and \
+                cand.hap_cons_alle[found, 2] <= 0:
+            return "genotyped_refcall"
+        dp = int(cand.total_cov[found])
+        ad1 = int(cand.alle_covs[found, 1])
+        if dp < opt.min_dp or ad1 < opt.min_alt_dp:
+            return "write_time_filtered"
+        return "called_not_matched"
+
+    # 4. not a surviving candidate
+    in_noisy = False
+    if chunk.noisy_regs is not None and len(chunk.noisy_regs) > 0:
+        lo = pos1 - (tol if kind != "snv" else 0)
+        hi = pos1 + (tol if kind != "snv" else 0)
+        in_noisy = len(chunk.noisy_regs.overlap_indices(lo, hi)) > 0
+    if in_noisy:
+        return "dropped_in_noisy_reassembly"
+    if n_alt < opt.min_alt_dp:
+        return "alt_support_below_min"
+    if n_cov < opt.min_dp:
+        return "low_coverage_site"
+    if n_alt < opt.min_af * n_cov:
+        return "demoted_low_af_somatic"
+    return "classified_out_clean"
+
+
+def classify_fn_causes(opt, fasta, bams, fns: Dict[str, list],
+                       tname: str, contig_len: int,
+                       max_examples: int = 3) -> dict:
+    """Bucket every FN by pipeline cause.  ``fns`` is evaluate_f1's
+    return_fns payload: snv [(pos0, alt4)], indel/sv [(anchor0, kind,
+    len)].  Windows containing FNs are re-run once each through
+    load_chunk + call_window (host-only)."""
+    from longcalld_torch.core import genotype
+    from longcalld_torch.core.pipeline import call_window, load_chunk
+    from longcalld_torch.core.windows import Window
+
+    opt = dataclasses.replace(opt, use_device=False, host_procs=0)
+    wsize = opt.window_size
+    items: List[Tuple[int, str, int, int]] = []   # (pos0, kind, len, cls_i)
+    for p, _alt in fns.get("snv", []):
+        items.append((int(p), "snv", 1, 0))
+    for a, k, ln in fns.get("indel", []):
+        items.append((int(a), k, int(ln), 1))
+    for a, k, ln in fns.get("sv", []):
+        items.append((int(a), k, int(ln), 2))
+
+    by_win: Dict[int, list] = {}
+    for it in items:
+        by_win.setdefault(it[0] // wsize, []).append(it)
+
+    tid = bams[0].name2tid(tname) if hasattr(bams[0], "name2tid") else 0
+    hist: Dict[str, dict] = {}
+    for wi in sorted(by_win):
+        beg = wi * wsize + 1
+        end = min((wi + 1) * wsize, contig_len)
+        win = Window(tid, tname, beg, end, 0, wi)
+        chunk = load_chunk(opt, fasta, bams, win, None, None)
+        made_positions: Dict[str, list] = {}
+        if chunk is not None:
+            call_window(opt, chunk)
+            for v in genotype.make_variants(opt, chunk):
+                if v.n_alt_allele == 0 or v.dp < opt.min_dp \
+                        or v.ad[1] < opt.min_alt_dp:
+                    continue
+                a0 = v.alt_bases[0]
+                if v.ref_len == 1 and len(a0) == 1:
+                    made_positions.setdefault("snv", []).append(v.pos)
+                elif len(a0) > v.ref_len:
+                    made_positions.setdefault("ins", []).append(v.pos)
+                else:
+                    made_positions.setdefault("del", []).append(v.pos)
+        for pos0, kind, length, cls_i in by_win[wi]:
+            if chunk is None:
+                cause = "no_reads_in_window"
+            else:
+                cause = _classify_one(opt, chunk, kind, pos0, length,
+                                      made_positions)
+            b = hist.setdefault(cause, {"n": 0, "by_class": [0, 0, 0],
+                                        "examples": []})
+            b["n"] += 1
+            b["by_class"][cls_i] += 1
+            if len(b["examples"]) < max_examples:
+                b["examples"].append(f"{tname}:{pos0 + 1}:{kind}{length}")
+    total = sum(b["n"] for b in hist.values())
+    return {
+        "total_fns": total,
+        "buckets": dict(sorted(hist.items(), key=lambda kv: -kv[1]["n"])),
+        "by_class_order": ["snv", "indel", "sv"],
+    }
