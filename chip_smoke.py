@@ -37,7 +37,9 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      host-only (host_procs=0); byte-equal VCF bodies, no kernel launched
      in the parent, both kernels and the phasing EM launched inside the
      workers of (a), device DP cells in at least two workers, none in (b)
-     or (c), and jax never imported.  A host with fewer than 8 cores
+     or (c), and jax never imported; (c) runs one thread (its records are
+     equal at every thread count, and one thread took half the wall of
+     eight on the 2 Mb contig).  A host with fewer than 8 cores
      gets hp = cpu_count workers and a contig of 2 * hp windows;
   6. the mesh: 4 shards on the first min(4, device_count()) distinct
      cards (on one card, cuda:0 four times) -- (a) the reads-sharded
@@ -64,7 +66,14 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      _align_batch on cuda:0 over seeded SV-like pairs (band buckets 1024,
      4096 and 5128), equal to the same aligner on CPU tensors (the plain
      versions), with both kernels launched at 1024 and 4096 and nothing
-     launched for the 5128 group.
+     launched for the 5128 group;
+  8. a short soak: tests/soak_torch.py over SOAK_SEEDS seeds (two of each
+     of its five scene families) on cuda:0 with forced routing, on its
+     seeded random 2 Mb chr11 -- zero FAIL, the families' audit clean
+     (soak_torch.audit_failures: a CUDA phasing EM in every device family,
+     both kernels in every one that aligns a DP cell; the somatic scene
+     aligns none), both kernels launched in the phase, and the families'
+     launch counts summing to the phase's.
 Every phase fails if jax or any module of the JAX package (longcalld_tpu)
 is in sys.modules, and its last line says so.
 The last lines are the card line, a JSON line of the kernels (with
@@ -103,6 +112,7 @@ WALK_BANDS = (1024, 4096)
 LONG_RUN_LPS = (33, 1000)    # Lp of the long-run walks, phases 3 (c), 7 (c)
 WINDOW = 500_000             # CallOpts' default window
 POOL_PROCS = 8               # phase 5 workers (capped by the host's cores)
+SOAK_SEEDS = 10              # phase 8: two seeds of each soak family
 MESH_SHARDS = 4              # phase 6 mesh size
 EM_SHAPES = [(2048, 2048), (8192, 8192)]   # phase 6 (a): (R, V) buckets
 
@@ -614,12 +624,13 @@ def run_pool(fa, bam, hp):
     configs = [("device_workers", hp, dict(procs_use_device=True,
                                            device_min_cells=1)),
                ("host_workers", hp, dict()),
-               ("in_process", 0, dict(use_device=False))]
+               ("in_process", 0, dict(use_device=False, n_threads=1))]
     bodies, reports = {}, {}
     try:
         for name, procs, kw in configs:
-            opt = CallOpts.hifi(ref_fa_fn=fa, in_bam_fns=[bam], n_threads=8,
-                                host_procs=procs, **kw)
+            opt = CallOpts.hifi(**{"ref_fa_fn": fa, "in_bam_fns": [bam],
+                                   "n_threads": 8, "host_procs": procs,
+                                   **kw})
             counters.reset()
             wfa._ALIGNER_CACHE.clear()
             # the parent's own launch counts: they must stay 0
@@ -650,6 +661,7 @@ def run_pool(fa, bam, hp):
                       for k in ("cells_device", "cells_host")})
             reports[name] = {
                 "wall_s": wall, "records": n_rec, "host_procs": procs,
+                "n_threads": opt.n_threads,
                 "parent_launches": band.launch_counts(),
                 "parent_phase_cuda_calls": phase_kernel.cuda_calls(),
                 "worker_launches": {
@@ -761,6 +773,38 @@ def run_mesh_call(fa, bam, mesh):
     return vcf_body(out.getvalue()), report
 
 
+def run_soak():
+    """Phase 8: tests/soak_torch.py's soak over SOAK_SEEDS seeds on cuda:0;
+    returns (summary, the phase's launches)."""
+    import torch
+
+    import soak_torch
+    from longcalld_torch.ops import band, phase_kernel
+
+    # launch counts from here on are the soak's own
+    band.reset_launch_counts()
+    phase_kernel.reset_cuda_calls()
+    with tempfile.TemporaryDirectory() as d:
+        summary = soak_torch.soak(
+            SOAK_SEEDS, soak_torch.seeded_base(d), torch.device("cuda:0"),
+            log=lambda s: print(f"soak {s}", flush=True))
+    launches = band.launch_counts()
+    if summary["counts"]["FAIL"]:
+        raise AssertionError(f"soak FAIL: {summary['non_pass']}")
+    if summary["audit_failures"]:
+        raise AssertionError(f"soak audit: {summary['audit_failures']}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched in the soak")
+        if n != sum(r["launches"][name]
+                    for r in summary["families"].values()):
+            raise AssertionError(f"the soak families' {name} launches do "
+                                 f"not sum to the phase's {n}")
+    for fam, r in summary["families"].items():
+        print(f"soak [{fam}]: {json.dumps(r)}", flush=True)
+    return summary, launches
+
+
 def check_vcf(body, fa):
     """Structural check of the records: sorted positions, REF bases that
     match the FASTA, a diploid GT."""
@@ -849,6 +893,7 @@ def kernel_entries(krows, brows, bench, arows, path_launches, path_shapes):
 
 def main() -> int:
     import torch
+    t_smoke = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "needs one CUDA card", file=sys.stderr)
@@ -961,9 +1006,10 @@ def main() -> int:
           f"workers and in-process: {len(pbodies['host_workers'])} records; "
           f"walls {pdev['wall_s']:.3f} s (device workers) / "
           f"{phost['wall_s']:.3f} s (host workers) / {pseq['wall_s']:.3f} s "
-          f"(in-process, host only); device cells in {len(busy)} workers; card "
-          f"memory in use {pdev['card_mem_before_mib']:.0f} MiB before, "
-          f"{pdev['peak_card_mem_mib']:.0f} MiB at peak", flush=True)
+          f"(in-process, host only, 1 thread); device cells in {len(busy)} "
+          f"workers; card memory in use {pdev['card_mem_before_mib']:.0f} "
+          f"MiB before, {pdev['peak_card_mem_mib']:.0f} MiB at peak",
+          flush=True)
     print(guard("5"), flush=True)
 
     mesh = phase_mesh()
@@ -999,10 +1045,20 @@ def main() -> int:
           f"{time.perf_counter() - t7:.1f} s", flush=True)
     print(guard("7"), flush=True)
 
+    t8 = time.perf_counter()
+    soak, soak_launches = run_soak()
+    print(f"soak: {soak['counts']} over {SOAK_SEEDS} seeds, launches "
+          f"{soak_launches}; phase 8 took {time.perf_counter() - t8:.1f} s",
+          flush=True)
+    print(guard("8"), flush=True)
+
     kernels = kernel_entries(krows, brows, bench, arows, {
         "launches": forced["launches"],
         "procs_launches": pdev["worker_launches"],
-        "mesh_launches": mrep["launches"]}, forced["launch_shapes"])
+        "mesh_launches": mrep["launches"],
+        "soak_launches": soak_launches}, forced["launch_shapes"])
+    print(f"chip_smoke: phases 1-8 took {time.perf_counter() - t_smoke:.1f} s",
+          flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,10 @@
 
 (a) No ``import`` of jax or of the JAX package (longcalld_tpu), at module
     level or inside a function, in any .py under longcalld_torch/, in
-    bench_torch.py, chip_smoke.py, tools/time_band_*.py or in
-    tests/torch_helpers.py
-    (the test helpers that chip_smoke.py and longcalld_torch/entry.py
-    import); one case per file.
+    bench_torch.py, chip_smoke.py, tools/time_band_*.py,
+    tests/torch_helpers.py (the test helpers that chip_smoke.py and
+    longcalld_torch/entry.py import) or tests/soak_torch.py (the port's
+    soak); one case per file.
 (b) Every module and C source that the port copies from the JAX package
     equals its original once ``longcalld_tpu`` reads ``longcalld_torch``
     and the citations of the reference C sources read ``reference/src/...``
@@ -13,7 +13,8 @@
     either such a copy or named below as the port's own.
 (c) tests/torch_helpers.py's contig builder writes FASTA, .fai, BAM and BAI
     files byte-identical to tests/synthcontig.py's for one seed, with and
-    without ONT-style indel errors.
+    without ONT-style indel errors; its sim_read is tests/util_bam.py's
+    source but for the package name (``copy_of``).
 
 Tolerance: exact (import nodes, source text, file bytes).
 """
@@ -69,7 +70,8 @@ def _files(top, exts):
 def _port_python():
     return (["longcalld_torch/" + f for f in _files(PORT, (".py",))]
             + ["bench_torch.py", "chip_smoke.py", "tools/time_band_fwd.py",
-               "tools/time_band_bwd.py", "tests/torch_helpers.py"])
+               "tools/time_band_bwd.py", "tests/torch_helpers.py",
+               "tests/soak_torch.py"])
 
 
 def _imports(tree):
@@ -156,3 +158,13 @@ def test_contig_builder_matches_synthcontig(tmp_path, indel_err):
         for ext in ("", ".fai" if a.endswith(".fa") else ".bai"):
             with open(a + ext, "rb") as fa, open(b + ext, "rb") as fb:
                 assert fa.read() == fb.read(), os.path.basename(a + ext)
+
+
+def test_sim_read_copy_equals_original():
+    import inspect
+
+    import torch_helpers
+    import util_bam
+    port = inspect.getsource(torch_helpers.sim_read)
+    assert port == copy_of(inspect.getsource(util_bam.sim_read))
+    assert "longcalld_torch.io.bam" in port

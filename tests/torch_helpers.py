@@ -1,15 +1,17 @@
 """Helpers shared by the port's tests (tests/test_torch_*.py),
-longcalld_torch/entry.py and chip_smoke.py: VCF bodies, a spy on
+longcalld_torch/entry.py, chip_smoke.py and tests/soak_torch.py: VCF
+bodies, a spy on
 run_call's pool dispatch, the seeded synthetic contig they call, random
 traceback bytes for the band walk, seeded SV-like pairs for the wide
 band buckets, and the F1 scoring of bench_torch.py's F1 leg.
 
 The contig builder is a copy of tests/synthcontig.py (build_truth,
 HapMap, apply_ont_errors, write_synth_bam without the r10 error model,
-write_synth_fasta) and tests/util_bam.py (make_record, write_bam) over
-the port's io, so that nothing here imports longcalld_tpu; it writes the
-same FASTA, BAM and BAI bytes for the same seed
-(tests/test_torch_selfcontained.py).  evaluate_f1 and classify_fn_causes
+write_synth_fasta) and tests/util_bam.py (make_record, write_bam, and
+sim_read, the read simulator of tests/soak_torch.py) over the port's io,
+so that nothing here imports longcalld_tpu; it writes the same FASTA, BAM
+and BAI bytes for the same seed (tests/test_torch_selfcontained.py holds
+sim_read's source to util_bam's).  evaluate_f1 and classify_fn_causes
 are copies of tests/synthcontig.py's and tests/fnclassify.py's over the
 port's modules; tests/test_torch_bench.py holds them to equal dicts."""
 
@@ -229,7 +231,8 @@ def sv_pairs(seed, n=900):
     return groups
 
 
-# ---- the seeded contig (copies of tests/synthcontig.py, tests/util_bam.py)
+# ---- the seeded contig and the soak's reads (copies of
+# tests/synthcontig.py and tests/util_bam.py)
 
 def make_record(tid, pos, qname, cigar, seq4, quals, mapq=60, flag=0,
                 tags=b""):
@@ -264,6 +267,61 @@ def write_bam(path, references, lengths, records):
         for rec in records:
             w.write(struct.pack("<i", len(rec)) + rec)
         w.close()
+
+
+def sim_read(rng, ref4, start, length, hap, variants, err):
+    """Simulate one read over ref4[start:start+length) for haplotype
+    `hap` (1/2).  `variants`: {pos: (kind, payload, gt)} with kind in
+    snv/ins/del, gt in het1/het2/hom; payload = alt base / ins base list /
+    del length.  Returns (seq4, cigar)."""
+    from longcalld_torch.io.bam import CDEL, CDIFF, CEQUAL, CINS
+    seq = []
+    cig = []
+
+    def push(op, ln):
+        if ln <= 0:
+            return
+        if cig and cig[-1][0] == op:
+            cig[-1][1] += ln
+        else:
+            cig.append([op, ln])
+
+    i = start
+    end = start + length
+    while i < end:
+        base = int(ref4[i])
+        v = variants.get(i)
+        on_hap = v is not None and (
+            v[2] == "hom" or (v[2] == "het1" and hap == 1)
+            or (v[2] == "het2" and hap == 2))
+        if on_hap:
+            kind, payload, _ = v
+            if kind == "snv":
+                seq.append(payload)
+                push(CDIFF, 1)
+                i += 1
+                continue
+            if kind == "ins":
+                seq.append(base)
+                push(CEQUAL, 1)
+                seq.extend(payload)
+                push(CINS, len(payload))
+                i += 1
+                continue
+            seq.append(base)
+            push(CEQUAL, 1)
+            push(CDEL, payload)
+            i += 1 + payload
+            continue
+        if rng.random() < err:
+            seq.append((base + 1 + int(rng.integers(3))) % 4)
+            push(CDIFF, 1)
+        else:
+            seq.append(base)
+            push(CEQUAL, 1)
+        i += 1
+    import numpy as _np
+    return _np.array(seq, dtype=_np.uint8), [(op, ln) for op, ln in cig]
 
 
 def build_truth(rng: np.random.Generator, ref4: np.ndarray, beg: int,
