@@ -52,9 +52,14 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      sharded EM run on CUDA, and jax never imported;
   7. the band widths: (a) each kernel against its plain version at every
      B in BANDS (multiples of 128 from 128 to 4096, the Pallas kernels'
-     rule), Lp in {256, 2048}, batch 64, plus B = Lp = 4096, bit-equal,
-     with plen == 0 pairs, dummies and, where the pattern is long enough
-     for its path to leave the band, a band-escape pair; (b) bench_torch.py's
+     rule; 640 the narrowest of band_fwd's wide design, 1152 a width it
+     reads at run time), Lp in {256, 2048}, batch 64, at the band buckets
+     1024, 2048 and 4096 also batch 8 and 512 (the wide buckets of
+     BatchAligner._submit_batch) at Lp 2048, plus B = Lp = 4096,
+     bit-equal, with plen == 0 pairs, dummies and, where the pattern is
+     long enough for its path to leave the band, a band-escape pair;
+     each shape's ms beside its bound (the plain versions' ms from their
+     one checking call); (b) bench_torch.py's
      kernel leg: CUDA-event ms and DP cells/s of both kernels at bench.py's
      microbench shape (batch 64, B 2048, Lp 2000), and the full path,
      BatchAligner.align_many on bench.py's 64 pairs of 2000 bp, whose
@@ -66,7 +71,10 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      _align_batch on cuda:0 over seeded SV-like pairs (band buckets 1024,
      4096 and 5128), equal to the same aligner on CPU tensors (the plain
      versions), with both kernels launched at 1024 and 4096 and nothing
-     launched for the 5128 group;
+     launched for the 5128 group; (e) every configuration of band_fwd's
+     wide design (columns per lane x CTAs per pair, ops/band.py:
+     wide_configs, at each compiled width and at 640 and 1152) against
+     the plain version at Lp 1000, batch 13, bit-equal;
   8. a short soak: tests/soak_torch.py over SOAK_SEEDS seeds (two of each
      of its five scene families) on cuda:0 with forced routing, on its
      seeded random 2 Mb chr11 -- zero FAIL, the families' audit clean
@@ -103,10 +111,13 @@ KERNEL_SHAPES = ([(256, Lp, n) for Lp in (256, 1024, 4096) for n in (64, 512)]
                  + [(256, 256, 2048)]
                  + [(256, 1024, n) for n in (2048, 301, 515)])
 CONFIG_SHAPE = (1024, 67)    # (Lp, batch) of phase 3 (b)
-BANDS = (128, 384, 1024, 1152, 2048, 4096)
-BAND_LP = 2048               # the Lp of each width's timing in the JSON line
+BANDS = (128, 384, 640, 1024, 1152, 2048, 4096)
+BAND_LP = 2048               # the long Lp of phase 7 (a)'s shapes
 BAND_SHAPES = ([(b, Lp, 64) for b in BANDS for Lp in (256, BAND_LP)]
+               + [(b, BAND_LP, n) for b in (1024, 2048, 4096)
+                  for n in (8, 512)]
                + [(4096, 4096, 64)])
+WIDE_CONFIG_SHAPE = (1000, 13)   # (Lp, batch) of phase 7 (e)
 BENCH_SHAPE = (2048, 2000, 64)   # bench.py:178's microbench (B, Lp, batch)
 WALK_BANDS = (1024, 4096)
 LONG_RUN_LPS = (33, 1000)    # Lp of the long-run walks, phases 3 (c), 7 (c)
@@ -267,8 +278,23 @@ def cuda_ms(fn, reps, queued=False):
     raise RuntimeError("the host could not enqueue the calls within 10 s")
 
 
-def check_kernels(shapes, plain_reps=1):
-    """Kernel vs plain on the card; returns per-shape rows."""
+def event_ms(fn):
+    """(fn(), CUDA-event ms of that one call)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def check_kernels(shapes, plain_reps=1, plain_once=False):
+    """Kernel vs plain on the card; returns per-shape rows.  With
+    ``plain_once`` each plain version's ms is that of the one call the
+    check makes (seconds a call, host-bound), not of a warm call and
+    ``plain_reps`` more."""
     import torch
 
     from longcalld_torch.ops import band, wfa
@@ -283,8 +309,9 @@ def check_kernels(shapes, plain_reps=1):
         args = from_numpy(arrays, dev)
         dp = (B, Lp, X, O1, E1, O2, E2)
         tbs_k, fin_k, edge_k = band.banded_dp(*args, *dp)
-        tbs_p, fin_p, edge_p = band.banded_dp_plain(*args, *dp)
         torch.cuda.synchronize()
+        (tbs_p, fin_p, edge_p), fwd_plain_ms = event_ms(
+            lambda: band.banded_dp_plain(*args, *dp))
         err_f = max(int((a.int() - b.int()).abs().max()) for a, b in
                     ((tbs_k, tbs_p), (fin_k, fin_p), (edge_k, edge_p)))
         if err_f:
@@ -297,8 +324,9 @@ def check_kernels(shapes, plain_reps=1):
                                  f"B={B} Lp={Lp}")
         bargs = (tbs_k, args[2], args[3], args[4], fin_k, B, Lp)
         pk_k, b0_k = band.backward_resolve(*bargs)
-        pk_p, b0_p, _ = band.backward_resolve_plain(*bargs)
         torch.cuda.synchronize()
+        (pk_p, b0_p, _), bwd_plain_ms = event_ms(
+            lambda: band.backward_resolve_plain(*bargs))
         err_b = max(int((pk_k - pk_p).abs().max()),
                     int((b0_k - b0_p).abs().max()))
         if err_b:
@@ -314,8 +342,8 @@ def check_kernels(shapes, plain_reps=1):
             "B": B, "Lp": Lp, "batch": n, "escape": escape,
             "config": list(band.band_fwd_config(B, n, band.sm_count(dev))),
             "fwd_ms": cuda_ms(lambda: band.banded_dp(*args, *dp), reps),
-            "fwd_plain_ms": cuda_ms(lambda: band.banded_dp_plain(*args, *dp),
-                                    plain_reps),
+            "fwd_plain_ms": fwd_plain_ms if plain_once else cuda_ms(
+                lambda: band.banded_dp_plain(*args, *dp), plain_reps),
             # band_bwd and compact_events run faster than the host issues
             # them: their ms are the card's (queued), the wrapper's and
             # compact_events' host-included ones beside them
@@ -323,7 +351,7 @@ def check_kernels(shapes, plain_reps=1):
                               queued=True),
             "bwd_wrapper_ms": cuda_ms(lambda: band.backward_resolve(*bargs),
                                       reps),
-            "bwd_plain_ms": cuda_ms(
+            "bwd_plain_ms": bwd_plain_ms if plain_once else cuda_ms(
                 lambda: band.backward_resolve_plain(*bargs), plain_reps),
             "compact_ms": cuda_ms(lambda: wfa.compact_events(nins, ops, Lp),
                                   reps, queued=True),
@@ -335,7 +363,7 @@ def check_kernels(shapes, plain_reps=1):
         }
         rows.append(row)
         print(f"kernel B={B} Lp={Lp} batch={n}: band_fwd "
-              f"{row['fwd_ms']:.3f} ms (warps per pair, pairs per CTA "
+              f"{row['fwd_ms']:.3f} ms (configuration "
               f"{tuple(row['config'])}; bound {fb:.3f} ms, {fb_by}; plain "
               f"{row['fwd_plain_ms']:.1f} ms), band_bwd {row['bwd_ms']:.3f} "
               f"ms (bound {bb:.4f} ms, {bb_by}; plain "
@@ -376,6 +404,38 @@ def check_configs():
     print(f"band_fwd configurations (B, warps per pair, pairs per CTA) "
           f"bit-equal to the plain version at Lp={Lp}, batch={n}: {checked}",
           flush=True)
+    return checked
+
+
+def check_wide_configs():
+    """Phase 7 (e): every configuration of band_fwd's wide design (columns
+    per lane x CTAs per pair) at each compiled width and at two run-time
+    widths against the plain version, bit-equal."""
+    import torch
+
+    from longcalld_torch.ops import band
+    from longcalld_torch.ops.convert import from_numpy
+
+    dev = torch.device("cuda:0")
+    rng = np.random.default_rng(4322)
+    Lp, n = WIDE_CONFIG_SHAPE
+    checked = []
+    for B in (640, 1152, *sorted(band.WIDE_CONFIGS)):
+        arrays, _ = make_batch(rng, n, Lp, B)
+        args = from_numpy(arrays, dev)
+        dp = (B, Lp, X, O1, E1, O2, E2)
+        ref = band.banded_dp_plain(*args, *dp)
+        for cfg in band.wide_configs(B):
+            got = band.banded_dp(*args, *dp, config=cfg)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                raise AssertionError(
+                    f"band_fwd with {cfg[0]} columns per lane and {cfg[1]} "
+                    f"CTAs per pair differs from its plain version at B={B}")
+            checked.append((B, *cfg))
+    print(f"band_fwd wide configurations (B, columns per lane, CTAs per "
+          f"pair) bit-equal to the plain version at Lp={Lp}, batch={n}: "
+          f"{checked}", flush=True)
     return checked
 
 
@@ -840,9 +900,9 @@ def kernel_entries(krows, brows, bench, arows, path_launches, path_shapes):
     function, so ``library_ms`` is null), every phase 3 shape's time,
     bound and share of it, the same at each shape the main path launched
     with its launches (``main_path``; band_bwd's entry also has
-    compact_events' ms there), per band width the phase 7 time at Lp =
-    BAND_LP, the bench-shape time and the _align_batch launches per band
-    bucket."""
+    compact_events' ms there), every phase 7 shape's time (band_fwd's
+    with its configuration) beside its bound, the bench-shape time and
+    the _align_batch launches per band bucket."""
     big = max(krows, key=lambda r: (r["Lp"], r["batch"]))
     kernels = []
     for name, src, ref, key in (
@@ -877,10 +937,13 @@ def kernel_entries(krows, brows, bench, arows, path_launches, path_shapes):
                 for r in krows if shape_key(r) in path_shapes[name]],
             "bands": [{
                 "B": r["B"], "Lp": r["Lp"], "batch": r["batch"],
+                **({"config": r["config"]} if key == "fwd" else {}),
                 "ms": r[f"{key}_ms"], "plain_ms": r[f"{key}_plain_ms"],
-                "max_abs_err": max(q[f"{key}_err"] for q in brows
-                                   if q["B"] == r["B"])}
-                for r in brows if r["Lp"] == BAND_LP],
+                "bound_ms": r[f"{key}_bound_ms"],
+                "bound_by": r[f"{key}_bound_by"],
+                "share": r[f"{key}_bound_ms"] / r[f"{key}_ms"],
+                "max_abs_err": r[f"{key}_err"]}
+                for r in brows],
             "bench_shape": {"B": bench["B"], "Lp": bench["Lp"],
                             "batch": bench["batch"],
                             "ms": bench[name]["ms"],
@@ -1033,12 +1096,14 @@ def main() -> int:
 
     # phase 7: the other band widths
     t7 = time.perf_counter()
-    brows = check_kernels(BAND_SHAPES)
+    brows = check_kernels(BAND_SHAPES, plain_once=True)
     bench = bench_kernels()
     walks = {b: check_offband_walk(b) for b in WALK_BANDS}
     long_runs = {b: check_long_runs(b) for b in WALK_BANDS}
     arows = run_align_batch()
+    wide_cfgs = check_wide_configs()
     print(f"band widths: both kernels bit-equal at B={list(BANDS)}, "
+          f"{len(wide_cfgs)} wide configurations of band_fwd bit-equal, "
           f"{sum(r['escape'] for r in brows)} batches with an escape pair; "
           f"walks off band {walks}; long-run reloads {long_runs}; phase 7 "
           f"took "

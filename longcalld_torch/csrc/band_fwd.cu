@@ -22,7 +22,9 @@
 // turns into about 54 ALU-pipe instructions at C = 8; the card issues 64
 // int32 lanes per SM per clock, and the traceback stream (one byte per
 // cell) is far below HBM bandwidth at that rate.  The row loop is a
-// serial chain, so the design keeps it free of block-wide barriers.
+// serial chain: every row waits for the I prefix-min of the row, so the
+// designs keep each row to one barrier at most and spread a pair over as
+// many SMs as it takes to keep the card busy.
 //
 // Two designs:
 //
@@ -44,9 +46,44 @@
 // is split over the 4 sub-partitions of its SM (ops/band.py:
 // band_fwd_config; PERF.md has the times of every configuration).
 //
-// band_fwd_kernel (B > 512).  One CTA per pair, C = 4 columns per thread,
-// T = B / 4 threads; the b+1 neighbour and the prefix-min carry cross warps
-// through shared memory under two __syncthreads per row.
+// band_fwd_wide (B > 512).  The same column body, text window and stores,
+// at C = 8 columns per lane (4 in a cluster of 8, and with B read at run
+// time), with a pair split over NCTA CTAs of one thread-block cluster
+// (NCTA = 1: a plain CTA), each CTA holding B / NCTA contiguous columns
+// on its own SM.  A row crosses a slice edge in three ways only: D reads
+// (i-1, b+1), the first column of the slice to the right; the I
+// prefix-min needs the min of nM - b*e over every column to the left;
+// the adjacency term reads nM at b-1, the last column of the slice to
+// the left.  So each warp publishes one seam a row -- its total of
+// nM - b*e for both gap kinds (one redux.sync each), its last nM, its
+// first column's A1, A2, D1, D2 -- into the shared memory of the CTAs
+// that read it: the totals to every CTA (those on the right read them;
+// the others are held to the same row by them), nM to the warp on its
+// right, the first column to the warp on its left.  The seam array is
+// double-buffered by row parity, so one wait a row suffices; after it
+// every read is local, and a warp takes the min of the totals to its
+// left in one redux.sync.  Within a CTA the seam is shared stores and
+// the wait a __syncthreads.  Across a cluster the stores to other CTAs
+// are st.async, each completing its bytes on the receiving CTA's
+// mbarrier of the row's parity, on which each local warp also arrives;
+// a CTA waits for its row's bytes and warps alone.  A cluster barrier
+// instead (barrier.cluster.arrive.release) waits for every traceback
+// store to device memory before it as well: ~1700 clocks a row on the
+// H100 (PERF.md, PR 9).  nM, nD and the seam of a row need only the row
+// before, so the seam leaves before the warp's own prefix scan, which
+// runs while the exchange is in flight.
+//
+// What binds it: issue on each SM sub-partition (about 54 instructions
+// a cell, 16 int32 lanes a sub-partition, for B / NCTA columns a row),
+// plus, in a cluster, the exchange's latency a row (~850 clocks), which
+// no other work of the pair can hide: row i+1 needs row i's I.  So one
+// CTA of 8 columns a lane is the fastest wherever the pairs fill the
+// SMs, and a cluster only where a pair's CTA would hold several warps a
+// sub-partition and its CTAs fit on idle SMs (ops/band.py:
+// band_fwd_config).  The compiled widths are the ones launched: 1024
+// and 4096 (the aligner's band buckets) and 2048 (bench.py's shape);
+// every other multiple of 128 above 512 runs one CTA per pair, C = 4,
+// with B read at run time.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,23 +92,12 @@ namespace {
 
 constexpr int BIG = 1 << 28;
 constexpr int MAX_THREADS = 1024;
-constexpr int MAX_WARPS = MAX_THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
 
-// inclusive prefix-min over the lanes of a warp
-__device__ __forceinline__ int warp_scan_min(int v, int lane) {
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int u = __shfl_up_sync(FULL, v, off);
-    if (lane >= off) v = imin(v, u);
-  }
-  return v;
-}
-
-// the same scan without the lane test: below `off` __shfl_up_sync returns
-// the lane's own value, and min(v, v) = v
+// inclusive prefix-min over the lanes of a warp: below `off`
+// __shfl_up_sync returns the lane's own value, and min(v, v) = v
 __device__ __forceinline__ int warp_scan_min_nolane(int v) {
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1)
@@ -85,11 +111,6 @@ __device__ __forceinline__ int min_le(int a, int b, bool* a_le) {
 }
 
 // the C traceback bytes of one lane, stored at once
-template <int C> struct Word;
-template <> struct Word<1> { using T = uint8_t; };
-template <> struct Word<2> { using T = uint16_t; };
-template <> struct Word<4> { using T = uint32_t; };
-
 template <int C>
 __device__ __forceinline__ void store_bytes(uint8_t* p, const uint32_t* wd) {
   if constexpr (C == 2) {
@@ -377,218 +398,455 @@ band_fwd_warp(const int8_t* __restrict__ P, const int8_t* __restrict__ Tband,
 }
 
 // ---------------------------------------------------------------------
-// band_fwd_kernel: one CTA per pair, C columns per thread, at most MAXT
-// threads per CTA, B read at run time (B > 512).
+// band_fwd_wide: a pair over NCTA CTAs of a cluster, NT threads of C
+// columns each (B = C NT NCTA); NT = 0 reads B and the thread count at
+// run time (B = C blockDim.x, NCTA = 1).
 
-template <int C, int MAXT>
-__global__ void __launch_bounds__(MAXT)
-band_fwd_kernel(const int8_t* __restrict__ P, const int8_t* __restrict__ Tband,
-                const int32_t* __restrict__ plen_a,
-                const int32_t* __restrict__ tlen_a,
-                const int32_t* __restrict__ dlo_a, uint8_t* __restrict__ tbs,
-                int32_t* __restrict__ finals, int32_t* __restrict__ edge_min,
-                int batch, int B_arg, int Lp, int x, int o1, int e1,
-                int o2, int e2) {
-  const int B = B_arg;
-  __shared__ int s_prev[3][MAX_WARPS];  // lane-0 M, D1, D2 of the previous row
-  __shared__ int s_tot[2][MAX_WARPS];   // per-warp inclusive min of base1/base2
-  __shared__ int s_nm[MAX_WARPS];       // lane-31 last-column nM of this row
-  using W = typename Word<C>::T;
+constexpr int MAX_PAIR_WARPS = MAX_THREADS / 32;  // warps of one pair
 
-  const int k = blockIdx.x;
-  const int t = threadIdx.x;
-  const int T = blockDim.x;             // B / C
-  const int lane = t & 31;
-  const int warp = t >> 5;
-  const int n_warps = T >> 5;
-  const int b0 = t * C;                 // first band column of this thread
+// what one warp of band_fwd_wide publishes per row: tot1, tot2 and
+// nm_last of this row, and its first column's A1, A2, D1, D2 (read by
+// the warp to the left in the next row); 16-byte aligned for v2 and v4
+// stores
+struct __align__(16) WideSeam {
+  int tot1, tot2, nm_last, pad;
+  int a1, a2, d10, d20;
+};
+
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return (int)r;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// the shared::cluster address of this CTA's shared address `a` in CTA
+// `rank` of the cluster
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t a, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+
+// the seam's stores into CTA `rank`'s copy of `p`: a shared store when
+// that is this CTA (`own`), else an st.async that completes its bytes on
+// that CTA's copy of the mbarrier `bar`.  An st.async releases only
+// itself, so a row's exchange never waits for the traceback stores to
+// device memory, as a release of the whole thread (barrier.cluster's)
+// would.
+__device__ __forceinline__ void send1(int* p, int rank, int own, uint32_t bar,
+                                      int v) {
+  if (rank == own) {
+    *p = v;
+  } else {
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.s32 [%0], %1,"
+        " [%2];"
+        :: "r"(cluster_addr(smem_addr(p), rank)), "r"(v),
+           "r"(cluster_addr(bar, rank))
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void send2(int* p, int rank, int own, uint32_t bar,
+                                      int v0, int v1) {
+  if (rank == own) {
+    *reinterpret_cast<int2*>(p) = make_int2(v0, v1);
+  } else {
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.s32 [%0],"
+        " {%1, %2}, [%3];"
+        :: "r"(cluster_addr(smem_addr(p), rank)), "r"(v0), "r"(v1),
+           "r"(cluster_addr(bar, rank))
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void send4(int* p, int rank, int own, uint32_t bar,
+                                      int v0, int v1, int v2, int v3) {
+  if (rank == own) {
+    *reinterpret_cast<int4*>(p) = make_int4(v0, v1, v2, v3);
+  } else {
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.s32 [%0],"
+        " {%1, %2, %3, %4}, [%5];"
+        :: "r"(cluster_addr(smem_addr(p), rank)), "r"(v0), "r"(v1), "r"(v2),
+           "r"(v3), "r"(cluster_addr(bar, rank))
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+// a warp's arrival on a row's phase (release at CTA scope: the warp's
+// shared stores before it), the first warp's with the bytes the phase
+// waits for from the other CTAs
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// polls of mbar_wait before it traps: a row's phase completes within
+// microseconds, so a phase that never completes (a byte count that does
+// not match the sends) ends the kernel with an error instead of hanging
+constexpr uint32_t MAX_POLLS = 1u << 20;
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t n = 0; !done; ++n) {
+    if (n == MAX_POLLS) __trap();
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n\tselp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+// a barrier over the pair's threads, used at its start and end: the
+// cluster's (release and acquire at cluster scope), or the CTA's
+template <int NCTA>
+__device__ __forceinline__ void pair_sync() {
+  if constexpr (NCTA == 1) {
+    __syncthreads();
+  } else {
+    asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+    asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+  }
+}
+
+template <int C, int NT, int NCTA>
+__global__ void __launch_bounds__(NT > 0 ? NT : MAX_THREADS, 1)
+band_fwd_wide(const int8_t* __restrict__ P, const int8_t* __restrict__ Tband,
+              const int32_t* __restrict__ plen_a,
+              const int32_t* __restrict__ tlen_a,
+              const int32_t* __restrict__ dlo_a, uint8_t* __restrict__ tbs,
+              int32_t* __restrict__ finals, int32_t* __restrict__ edge_min,
+              int batch, int B_arg, int Lp, int x, int o1, int e1, int o2,
+              int e2) {
+  static_assert(NT > 0 || NCTA == 1, "run-time B takes one CTA per pair");
+  constexpr int NW = (C + 3) / 4;       // 32-bit words of a lane's bytes
+  const int B = NT > 0 ? C * NT * NCTA : B_arg;
+  const int nw = NT > 0 ? NT / 32 : (int)(blockDim.x >> 5);  // CTA's warps
+  const int nwg = nw * NCTA;            // the pair's warps
+  // [row parity][warp of the pair], and per row parity the mbarrier its
+  // seam stores complete on (NCTA > 1)
+  __shared__ WideSeam s_seam[2][MAX_PAIR_WARPS];
+  __shared__ __align__(8) uint64_t s_bar[2];
+  __shared__ int s_edge;
+
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int rank = NCTA > 1 ? cluster_rank() : 0;
+  const int k = blockIdx.x / NCTA;
+  const int g = rank * nw + w;          // warp within the pair
+  const int b0 = (g * 32 + lane) * C;   // first band column of the lane
+  const bool first_lane = g == 0 && lane == 0;          // owns column 0
+  const bool last_lane = g == nwg - 1 && lane == 31;    // owns column B-1
   const int pl = plen_a[k], tl = tlen_a[k], dl = dlo_a[k];
   const int8_t* prow = P + (size_t)k * Lp;
   const int8_t* trow = Tband + (size_t)k * (Lp + B) + b0;
   const size_t tb_stride = (size_t)batch * B;  // bytes between rows
   uint8_t* tb = tbs + (size_t)k * B + b0;
+  const int oe1 = o1 + e1, oe2 = o2 + e2;
 
+  // as in band_fwd_warp: -b*e and b*e + o per column, row i-1's states
+  // and A = min(M + o + e, BIG), the text window
+  int nb1[C], nb2[C], bo1[C], bo2[C];
+  int M[C], I1[C], I2[C], D1[C], D2[C], A1[C], A2[C], txt[C];
+  uint32_t wd[NW];
+#pragma unroll
+  for (int q = 0; q < NW; ++q) wd[q] = 0;
+  txt[0] = 0;
+#pragma unroll
+  for (int c = 1; c < C; ++c) txt[c] = trow[c - 1];
   // row 0 (ops/wfa.py:69-76)
-  int M[C], I1[C], I2[C], D1[C], D2[C], be1[C], be2[C];
-  unsigned word = 0;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    be1[c] = (b0 + c) * e1;
-    be2[c] = (b0 + c) * e2;
-    const int j0 = dl + b0 + c;
+    const int b = b0 + c;
+    nb1[c] = -b * e1;
+    nb2[c] = -b * e2;
+    bo1[c] = b * e1 + o1;
+    bo2[c] = b * e2 + o2;
+    const int j0 = dl + b;
     M[c] = j0 == 0 ? 0 : BIG;
     I1[c] = j0 > 0 ? o1 + e1 * j0 : BIG;
     I2[c] = j0 > 0 ? o2 + e2 * j0 : BIG;
     D1[c] = BIG;
     D2[c] = BIG;
-    word |= (unsigned)(j0 > 1 ? 24 : 0) << (8 * c);
+    A1[c] = imin(M[c] + oe1, BIG);
+    A2[c] = imin(M[c] + oe2, BIG);
+    wd[c / 4] |= (uint32_t)(j0 > 1 ? 24 : 0) << (8 * (c % 4));
   }
-  *reinterpret_cast<W*>(tb) = (W)word;
+  store_bytes<C>(tb, wd);
 
   const int b_final = tl - pl - dl;
   const int min_e = imin(e1, e2);
   const int bl = abs(b_final) * min_e;
   const int br = abs((B - 1) - b_final) * min_e;
-  // the band-edge metric reads columns 0 (thread 0) and B-1 (thread T-1)
-  // only; each thread tracks its first column if it is thread 0, else its
-  // last (min distributes over the row's min(edge0 + bl, edge1 + br) + act)
-  const bool left = t == 0;
-  const int suffix = left ? bl : br;
-  int edge = left ? imin(imin(M[0], I1[0]), I2[0]) + suffix
-                  : imin(imin(M[C - 1], I1[C - 1]), I2[C - 1]) + suffix;
-  // finals: plen == 0 pairs finish on row 0 (ops/wfa.py:170-177)
+  const int suffix = first_lane ? bl : br;
+  int edge = first_lane ? imin(imin(M[0], I1[0]), I2[0]) + suffix
+                        : imin(imin(M[C - 1], I1[C - 1]), I2[C - 1]) + suffix;
   int f0 = BIG, f1 = BIG, f2 = BIG, f3 = BIG, f4 = BIG;
+  if (pl == 0) {
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    if (pl == 0 && b0 + c == b_final) { f0 = I1[c]; f1 = I2[c]; f4 = M[c]; }
-  }
-
-  for (int i = 1; i <= Lp; ++i) {
-    if (lane == 0) {
-      s_prev[0][warp] = M[0];
-      s_prev[1][warp] = D1[0];
-      s_prev[2][warp] = D2[0];
+    for (int c = 0; c < C; ++c) {
+      if (b0 + c == b_final) { f0 = I1[c]; f1 = I2[c]; f4 = M[c]; }
     }
-    const int pat = prow[i - 1];
-    int txt[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) txt[c] = __ldg(trow + i - 1 + c);
-    __syncthreads();
+  }
+  // row 0 of the first column right of the lane's warp needs no
+  // exchange: M is 0 at j = 0 and D is BIG
+  if (lane == 31 && g + 1 < nwg) {
+    const int m0 = dl + b0 + C == 0 ? 0 : BIG;
+    *reinterpret_cast<int4*>(&s_seam[0][g + 1].a1) =
+        make_int4(imin(m0 + oe1, BIG), imin(m0 + oe2, BIG), BIG, BIG);
+  }
+  // each row's phase of the mbarriers waits for one arrival a warp of
+  // the CTA (after its shared stores) and the bytes the other CTAs send:
+  // the totals of all their warps, nM from the last warp of the CTA on
+  // the left, the first column of the CTA on the right.  The totals go to
+  // every CTA, not only to those on the right that read them, so that no
+  // CTA completes a row before every other has sent it: a CTA can then
+  // be at most one row ahead of any other, and the double-buffered seam
+  // and mbarriers are never written for row i + 2 while a CTA still
+  // reads row i
+  const int rx_bytes = 8 * (NCTA - 1) * nw + (rank > 0 ? 4 : 0) +
+                       (rank < NCTA - 1 ? 16 : 0);
+  if constexpr (NCTA > 1) {
+    if (threadIdx.x == 0) {
+      mbar_init(smem_addr(&s_bar[0]), nw);
+      mbar_init(smem_addr(&s_bar[1]), nw);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+  }
+  // every CTA of the cluster runs, with its mbarriers set, before any
+  // peer sends to it
+  pair_sync<NCTA>();
 
-    // (i-1, b0+C): the next thread's first column
-    int rM = __shfl_down_sync(FULL, M[0], 1);
+  int nxt_pat = prow[0];
+  int nxt_txt = trow[C - 1];
+  for (int i = 1; i <= Lp; ++i) {
+    const int pat = nxt_pat;
+#pragma unroll
+    for (int c = 0; c + 1 < C; ++c) txt[c] = txt[c + 1];
+    txt[C - 1] = nxt_txt;
+    if (i < Lp) {
+      nxt_pat = prow[i];
+      nxt_txt = trow[i + C - 1];
+    }
+
+    // (i-1, b0+C): the next lane's first column, across a warp edge from
+    // the seam of row i-1; past the band, BIG
+    int rA1 = __shfl_down_sync(FULL, A1[0], 1);
+    int rA2 = __shfl_down_sync(FULL, A2[0], 1);
     int rD1 = __shfl_down_sync(FULL, D1[0], 1);
     int rD2 = __shfl_down_sync(FULL, D2[0], 1);
     if (lane == 31) {
-      const bool last = warp == n_warps - 1;
-      rM = last ? BIG : s_prev[0][warp + 1];
-      rD1 = last ? BIG : s_prev[1][warp + 1];
-      rD2 = last ? BIG : s_prev[2][warp + 1];
+      rA1 = BIG; rA2 = BIG; rD1 = BIG; rD2 = BIG;
+      if (g + 1 < nwg) {
+        const int4 s = *reinterpret_cast<const int4*>(
+            &s_seam[(i - 1) & 1][g + 1].a1);
+        rA1 = s.x; rA2 = s.y; rD1 = s.z; rD2 = s.w;
+      }
     }
 
-    int nM[C], nD1[C], nD2[C];
-    int tot1, tot2;                     // the thread's min of nM - b*e
-    word = 0;
+    const int jb = i + dl + b0;
+    const int c_lo = max(1 - jb, 0);
+    const int c_hi = min(i <= pl ? tl - jb : -1, C - 1);
+    const uint32_t vmask = c_hi >= c_lo ? (2u << c_hi) - (1u << c_lo) : 0u;
+    int nM[C], nD1[C], nD2[C], nA1[C], nA2[C];
+    int tot1 = BIG, tot2 = BIG;
+#pragma unroll
+    for (int q = 0; q < NW; ++q) wd[q] = 0;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      // M from the diagonal (same b); first minimum in PERM order wins
-      int best = I1[c], src = 1;
-      if (I2[c] < best) { best = I2[c]; src = 2; }
-      if (D1[c] < best) { best = D1[c]; src = 3; }
-      if (D2[c] < best) { best = D2[c]; src = 4; }
-      if (M[c] < best) { best = M[c]; src = 0; }
-      const int b = b0 + c;
-      const int jv = i + dl + b;
-      const bool valid = jv >= 1 && jv <= tl && i <= pl;
-      const int sub = valid ? (pat == txt[c] ? 0 : x) : BIG;
+      const int sh = 8 * (c % 4);
+      bool keep;
+      int best = min_le(I1[c], I2[c], &keep);
+      uint32_t src = keep ? 1u << sh : 2u << sh;
+      best = min_le(best, D1[c], &keep);
+      src = keep ? src : 3u << sh;
+      best = min_le(best, D2[c], &keep);
+      src = keep ? src : 4u << sh;
+      best = min_le(best, M[c], &keep);
+      src = keep ? src : 0u;
+      const int sub = (vmask >> c) & 1u ? (pat == txt[c] ? 0 : x) : BIG;
       nM[c] = imin(best + sub, BIG);
 
-      // D from (i-1, b+1)
-      const int xM = c + 1 < C ? M[c + 1] : rM;
-      const int xD1 = c + 1 < C ? D1[c + 1] : rD1;
-      const int xD2 = c + 1 < C ? D2[c + 1] : rD2;
-      const int open1 = imin(xM + o1 + e1, BIG);
-      const int ext1 = imin(xD1 + e1, BIG);
-      nD1[c] = imin(open1, ext1);
-      const int open2 = imin(xM + o2 + e2, BIG);
-      const int ext2 = imin(xD2 + e2, BIG);
-      nD2[c] = imin(open2, ext2);
-
-      word |= (unsigned)(src | ((ext1 < open1) << 5) | ((ext2 < open2) << 6))
-              << (8 * c);
-      tot1 = c == 0 ? nM[0] - be1[0] : imin(tot1, nM[c] - be1[c]);
-      tot2 = c == 0 ? nM[0] - be2[0] : imin(tot2, nM[c] - be2[c]);
+      const int open1 = c + 1 < C ? A1[c + 1] : rA1;
+      const int open2 = c + 1 < C ? A2[c + 1] : rA2;
+      const int ext1 = imin((c + 1 < C ? D1[c + 1] : rD1) + e1, BIG);
+      const int ext2 = imin((c + 1 < C ? D2[c + 1] : rD2) + e2, BIG);
+      bool open1_le, open2_le;
+      nD1[c] = min_le(open1, ext1, &open1_le);
+      nD2[c] = min_le(open2, ext2, &open2_le);
+      wd[c / 4] |= src | (open1_le ? 0u : 32u << sh) |
+                   (open2_le ? 0u : 64u << sh);
+      tot1 = imin(tot1, nM[c] + nb1[c]);
+      tot2 = imin(tot2, nM[c] + nb2[c]);
+      nA1[c] = imin(nM[c] + oe1, BIG);
+      nA2[c] = imin(nM[c] + oe2, BIG);
     }
 
-    // I: inclusive prefix-min of the thread totals within the warp ...
-    const int inc1 = warp_scan_min(tot1, lane);
-    const int inc2 = warp_scan_min(tot2, lane);
-    int ex1 = __shfl_up_sync(FULL, inc1, 1);      // exclusive prefix-min
-    int ex2 = __shfl_up_sync(FULL, inc2, 1);
-    int lnM = __shfl_up_sync(FULL, nM[C - 1], 1); // nM at b0-1 (adjacency)
-    if (lane == 31) {
-      s_tot[0][warp] = inc1;
-      s_tot[1][warp] = inc2;
-      s_nm[warp] = nM[C - 1];
-    }
-    __syncthreads();
-    // ... plus the carry of the warps to the left
-    int carry1 = BIG, carry2 = BIG;
-    if constexpr (MAXT <= 256) {        // up to 8 warps: a serial loop
-      for (int w = 0; w < warp; ++w) {
-        carry1 = imin(carry1, s_tot[0][w]);
-        carry2 = imin(carry2, s_tot[1][w]);
+    // the seam of row i: the warp's totals, its last nM, its first
+    // column.  It goes out before the warp's own prefix scan, so that the
+    // exchange runs under the scan, except with B read at run time: there
+    // a CTA may hold 1024 threads, whose 64 registers each do not hold
+    // the totals across the scan (the seam waits for the scan's last
+    // lane instead)
+    WideSeam* rs = s_seam[i & 1];
+    const uint32_t bar = smem_addr(&s_bar[i & 1]);
+    constexpr bool EARLY = NT > 0;
+    auto publish = [&](int wt1, int wt2) {
+      if constexpr (NCTA == 1) {
+        if (lane == 0)
+          *reinterpret_cast<int2*>(&rs[g].tot1) = make_int2(wt1, wt2);
+        if (lane == 31 && g + 1 < nwg) rs[g].nm_last = nM[C - 1];
+        if (lane == 0 && g > 0)
+          *reinterpret_cast<int4*>(&rs[g].a1) =
+              make_int4(nA1[0], nA2[0], nD1[0], nD2[0]);
+      } else {
+        if (lane < NCTA) send2(&rs[g].tot1, lane, rank, bar, wt1, wt2);
+        if (lane == 31 && g + 1 < nwg)
+          send1(&rs[g].nm_last, w + 1 < nw ? rank : rank + 1, rank, bar,
+                nM[C - 1]);
+        if (lane == 0 && g > 0)
+          send4(&rs[g].a1, w > 0 ? rank : rank - 1, rank, bar, nA1[0],
+                nA2[0], nD1[0], nD2[0]);
+        __syncwarp();
+        if (lane == 0) {
+          if (w == 0) {
+            mbar_arrive_expect(bar, rx_bytes);
+          } else {
+            mbar_arrive(bar);
+          }
+        }
       }
-    } else {                            // up to 32: a scan of warp totals
-      int w1 = lane < n_warps ? s_tot[0][lane] : BIG;
-      int w2 = lane < n_warps ? s_tot[1][lane] : BIG;
-      w1 = warp_scan_min(w1, lane);
-      w2 = warp_scan_min(w2, lane);
-      const int prev_warp = warp == 0 ? 0 : warp - 1;
-      const int u1 = __shfl_sync(FULL, w1, prev_warp);
-      const int u2 = __shfl_sync(FULL, w2, prev_warp);
-      if (warp > 0) {
-        carry1 = u1;
-        carry2 = u2;
-      }
+    };
+    if constexpr (EARLY)
+      publish(__reduce_min_sync(FULL, tot1), __reduce_min_sync(FULL, tot2));
+    // I: exclusive prefix-min of the lane totals within the warp ...
+    const int inc1 = warp_scan_min_nolane(tot1);
+    const int inc2 = warp_scan_min_nolane(tot2);
+    int run1 = __shfl_up_sync(FULL, inc1, 1);
+    int run2 = __shfl_up_sync(FULL, inc2, 1);
+    int lnM = __shfl_up_sync(FULL, nM[C - 1], 1);  // nM at b0-1
+    if (lane == 0) { run1 = BIG; run2 = BIG; lnM = BIG; }
+    if constexpr (!EARLY)
+      publish(__shfl_sync(FULL, inc1, 31), __shfl_sync(FULL, inc2, 31));
+    // ... and across the pair's warps, once every seam of the row is in
+    if constexpr (NCTA == 1) {
+      __syncthreads();
+    } else {
+      // mbarrier 1 serves rows 1, 3, 5, ..., mbarrier 0 rows 2, 4, ...:
+      // row i is its use (i - 1) / 2, whose phase parity it waits for
+      mbar_wait(bar, ((i - 1) >> 1) & 1);
     }
-    if (lane == 0) {
-      ex1 = BIG;
-      ex2 = BIG;
-      lnM = warp == 0 ? BIG : s_nm[warp - 1];
-    }
-    int run1 = imin(carry1, ex1);       // min over the columns left of b
-    int run2 = imin(carry2, ex2);
+    const int2 t = lane < g ? *reinterpret_cast<const int2*>(&rs[lane].tot1)
+                            : make_int2(BIG, BIG);
+    run1 = imin(run1, __reduce_min_sync(FULL, t.x));
+    run2 = imin(run2, __reduce_min_sync(FULL, t.y));
+    if (lane == 0 && g > 0) lnM = rs[g - 1].nm_last;
 
     const int act = i <= pl ? 0 : BIG;
-    int e5_first = BIG, e5_last = BIG;
+    int nI1[C], nI2[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      const int b = b0 + c;
-      const int nI1 = imin(run1 + be1[c] + o1, BIG);
-      const int nI2 = imin(run2 + be2[c] + o2, BIG);
-      run1 = imin(run1, nM[c] - be1[c]);
-      run2 = imin(run2, nM[c] - be2[c]);
-      const int lm = c == 0 ? lnM : nM[c - 1];
-      const int adj1 = b == 0 ? BIG : imin(lm + o1 + e1, BIG);
-      const int adj2 = b == 0 ? BIG : imin(lm + o2 + e2, BIG);
-      word |= (unsigned)(((nI1 < adj1) << 3) | ((nI2 < adj2) << 4)) << (8 * c);
-
-      if (i == pl && b == b_final) {
-        f0 = nI1; f1 = nI2; f2 = nD1[c]; f3 = nD2[c]; f4 = nM[c];
-      }
-      const int e5 = imin(imin(imin(nM[c], nI1), imin(nI2, nD1[c])), nD2[c]);
-      if (c == 0) e5_first = e5;
-      if (c == C - 1) e5_last = e5;
-
-      M[c] = nM[c]; I1[c] = nI1; I2[c] = nI2; D1[c] = nD1[c]; D2[c] = nD2[c];
+      const int sh = 8 * (c % 4);
+      nI1[c] = imin(run1 + bo1[c], BIG);
+      nI2[c] = imin(run2 + bo2[c], BIG);
+      run1 = imin(run1, nM[c] + nb1[c]);
+      run2 = imin(run2, nM[c] + nb2[c]);
+      const int adj1 = c == 0 ? imin(lnM + oe1, BIG) : nA1[c - 1];
+      const int adj2 = c == 0 ? imin(lnM + oe2, BIG) : nA2[c - 1];
+      wd[c / 4] |= (nI1[c] < adj1 ? 8u << sh : 0u) |
+                   (nI2[c] < adj2 ? 16u << sh : 0u);
     }
-    *reinterpret_cast<W*>(tb + (size_t)i * tb_stride) = (W)word;
-    edge = imin(edge, imin((left ? e5_first : e5_last) + suffix + act, BIG));
+    store_bytes<C>(tb + (size_t)i * tb_stride, wd);
+
+    if (i == pl) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        if (b0 + c == b_final) {
+          f0 = nI1[c]; f1 = nI2[c]; f2 = nD1[c]; f3 = nD2[c]; f4 = nM[c];
+        }
+      }
+    }
+    const int e5 = first_lane
+        ? imin(imin(imin(nM[0], nI1[0]), imin(nI2[0], nD1[0])), nD2[0])
+        : imin(imin(imin(nM[C - 1], nI1[C - 1]), imin(nI2[C - 1], nD1[C - 1])),
+               nD2[C - 1]);
+    edge = imin(edge, imin(e5 + suffix + act, BIG));
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      M[c] = nM[c]; I1[c] = nI1[c]; I2[c] = nI2[c];
+      D1[c] = nD1[c]; D2[c] = nD2[c]; A1[c] = nA1[c]; A2[c] = nA2[c];
+    }
   }
 
   // the captured finals, or BIG when b_final lies outside the band
   const bool in_band = b_final >= 0 && b_final < B;
-  if (t == (in_band ? b_final / C : 0)) {
+  if (in_band ? (b_final >= b0 && b_final < b0 + C) : first_lane) {
     int32_t* f = finals + (size_t)k * 5;
     f[0] = f0; f[1] = f1; f[2] = f2; f[3] = f3; f[4] = f4;
   }
-  __syncthreads();  // s_tot is free again: reuse it for the edge pair
-  if (t == 0) s_tot[0][0] = edge;
-  if (t == T - 1) s_tot[1][0] = edge;
-  __syncthreads();
-  if (t == 0) edge_min[k] = imin(s_tot[0][0], s_tot[1][0]);
+  // edge_min: column B-1's edge goes to the first CTA; the barrier also
+  // keeps every CTA alive until no peer reads or writes its shared memory
+  if (last_lane) {
+    if constexpr (NCTA == 1) {
+      s_edge = edge;
+    } else {
+      asm volatile("st.shared::cluster.s32 [%0], %1;"
+                   :: "r"(cluster_addr(smem_addr(&s_edge), 0)), "r"(edge)
+                   : "memory");
+    }
+  }
+  pair_sync<NCTA>();
+  if (first_lane) edge_min[k] = imin(edge, s_edge);
 }
 
-template <int C, int MAXT>
-void launch(const void* P, const void* Tband, const void* plen,
-            const void* tlen, const void* dlo, void* tbs, void* finals,
-            void* edge_min, int batch, int B, int Lp, int x, int o1, int e1,
-            int o2, int e2, cudaStream_t stream) {
-  band_fwd_kernel<C, MAXT><<<batch, B / C, 0, stream>>>(
-      (const int8_t*)P, (const int8_t*)Tband, (const int32_t*)plen,
-      (const int32_t*)tlen, (const int32_t*)dlo, (uint8_t*)tbs,
-      (int32_t*)finals, (int32_t*)edge_min, batch, B, Lp, x, o1, e1, o2, e2);
+// one configuration of band_fwd_wide: columns per lane, threads per CTA (0:
+// B / C, read at run time), CTAs per pair
+template <int C, int NT, int NCTA>
+int launch_wide(const void* P, const void* Tband, const void* plen,
+                const void* tlen, const void* dlo, void* tbs, void* finals,
+                void* edge_min, int batch, int B, int Lp, int x, int o1,
+                int e1, int o2, int e2, cudaStream_t stream) {
+  const int threads = NT > 0 ? NT : B / C;
+  if (threads % 32 != 0 || threads > MAX_THREADS ||
+      (long long)batch * NCTA > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(batch * NCTA);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = NCTA;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = NCTA > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, band_fwd_wide<C, NT, NCTA>, (const int8_t*)P,
+      (const int8_t*)Tband, (const int32_t*)plen, (const int32_t*)tlen,
+      (const int32_t*)dlo, (uint8_t*)tbs, (int32_t*)finals,
+      (int32_t*)edge_min, batch, B, Lp, x, o1, e1, o2, e2);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
 }
 
 // one configuration of band_fwd_warp: columns per lane, warps per pair
@@ -629,27 +887,53 @@ int launch_warp_cfg(const void* P, const void* Tband, const void* plen,
   return (int)cudaErrorInvalidValue;
 }
 
+// band_fwd_wide at band width B with cpl columns per lane and ncta CTAs
+// per pair: the configurations of the compiled widths, and at every other
+// width (4, 1) with B read at run time; cudaErrorInvalidValue otherwise
+int launch_wide_cfg(const void* P, const void* Tband, const void* plen,
+                    const void* tlen, const void* dlo, void* tbs,
+                    void* finals, void* edge_min, int batch, int B, int cpl,
+                    int ncta, int Lp, int x, int o1, int e1, int o2, int e2,
+                    cudaStream_t s) {
+#define LCD_WIDE_CFG(BB, C, N)                                              \
+  if (B == BB && cpl == C && ncta == N)                                    \
+    return launch_wide<C, BB / (C * N), N>(P, Tband, plen, tlen, dlo, tbs,  \
+                                           finals, edge_min, batch, B, Lp,  \
+                                           x, o1, e1, o2, e2, s);
+  LCD_WIDE_CFG(1024, 8, 1)
+  LCD_WIDE_CFG(2048, 8, 1)
+  LCD_WIDE_CFG(2048, 4, 8)
+  LCD_WIDE_CFG(4096, 8, 1)
+  LCD_WIDE_CFG(4096, 8, 2)
+  LCD_WIDE_CFG(4096, 4, 8)
+#undef LCD_WIDE_CFG
+  if (B != 1024 && B != 2048 && B != 4096 && cpl == 4 && ncta == 1)
+    return launch_wide<4, 0, 1>(P, Tband, plen, tlen, dlo, tbs, finals,
+                                edge_min, batch, B, Lp, x, o1, e1, o2, e2, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // B must be a multiple of 128 in [128, 4096] (the Pallas kernel's rule,
-// pallas_band.py:18) and tbs 16-byte aligned.  B <= 512 runs band_fwd_warp
-// with wpp warps per pair and ppc pairs per CTA (ops/band.py:
-// band_fwd_config picks them), B > 512 band_fwd_kernel with wpp = 0;
-// anything else is cudaErrorInvalidValue.
+// pallas_band.py:18) and tbs 16-byte aligned.  The two configuration
+// arguments (ops/band.py:band_fwd_config picks them) are, at B <= 512,
+// band_fwd_warp's warps per pair and pairs per CTA, and at B > 512
+// band_fwd_wide's columns per lane and CTAs per pair (the cluster size);
+// a configuration without an instantiation is cudaErrorInvalidValue, and
+// a cluster launch the card refuses returns its error.
 extern "C" int lcd_band_fwd(const void* P, const void* Tband, const void* plen,
                             const void* tlen, const void* dlo, void* tbs,
                             void* finals, void* edge_min, int batch, int B,
                             int Lp, int x, int o1, int e1, int o2, int e2,
-                            int wpp, int ppc, void* stream) {
-  if (B < 128 || B > 4096 || B % 128 != 0 || (uintptr_t)tbs % 16 != 0 ||
-      (B <= 512) != (wpp > 0))
+                            int cfg0, int cfg1, void* stream) {
+  if (B < 128 || B > 4096 || B % 128 != 0 || (uintptr_t)tbs % 16 != 0)
     return (int)cudaErrorInvalidValue;
   if (batch <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (B <= 512)
     return launch_warp_cfg(P, Tband, plen, tlen, dlo, tbs, finals, edge_min,
-                           batch, B, wpp, ppc, Lp, x, o1, e1, o2, e2, s);
-  launch<4, MAX_THREADS>(P, Tband, plen, tlen, dlo, tbs, finals, edge_min,
-                         batch, B, Lp, x, o1, e1, o2, e2, s);
-  return (int)cudaGetLastError();
+                           batch, B, cfg0, cfg1, Lp, x, o1, e1, o2, e2, s);
+  return launch_wide_cfg(P, Tband, plen, tlen, dlo, tbs, finals, edge_min,
+                         batch, B, cfg0, cfg1, Lp, x, o1, e1, o2, e2, s);
 }

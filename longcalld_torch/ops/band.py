@@ -11,8 +11,10 @@ Each entry point has two forms:
   Pallas kernels take: B a multiple of 128 from 128 to 4096 (the
   aligner's routing sends only the B = 256 bucket from ``submit``;
   ``BatchAligner._align_batch`` reaches the others).  The forward kernel
-  has two designs, chosen by ``band_fwd_config``: warps per pair for
-  B <= 512, one CTA per pair above;
+  has two designs, configured by ``band_fwd_config``: warps per pair for
+  B <= 512; above, one CTA per pair, or at B 2048 and 4096, when the
+  pairs leave SMs idle, a pair split over the CTAs of a thread-block
+  cluster (one seam exchange a row);
 * a plain PyTorch version (``*_plain``), taken for CPU tensors only; it
   takes any B.
 A CUDA tensor never falls back to the plain version: the wrapper launches
@@ -42,6 +44,13 @@ OFF_LEFT, OFF_RIGHT = 1, 2    # the edge a plain walk fell off (off_edge)
 # fastest at some batch on the H100 (PERF.md)
 WARP_CONFIGS = {128: (1,), 256: (1, 4), 384: (3,), 512: (1, 4)}
 MAX_GROUP_WARPS = 8           # warps of one CTA of the warp design
+# band_fwd's wide design (B > 512): the (columns per lane, CTAs per pair)
+# each compiled width is built for (csrc/band_fwd.cu:launch_wide_cfg), the
+# ones that were fastest at some batch on the H100 (PERF.md); every other
+# width runs WIDE_RUNTIME, B read at run time
+WIDE_CONFIGS = {1024: ((8, 1),), 2048: ((8, 1), (4, 8)),
+                4096: ((8, 1), (8, 2), (4, 8))}
+WIDE_RUNTIME = ((4, 1),)
 
 _count_lock = threading.Lock()
 _launches = {"band_fwd": 0, "band_bwd": 0}
@@ -93,29 +102,44 @@ def _check_band(B: int) -> None:
                          f"got B={B}")
 
 
-def _check_config(B: int, wpp: int, ppc: int) -> None:
-    ok = ((wpp, ppc) == (0, 0) if B > 512 else
-          wpp in WARP_CONFIGS[B] and 1 <= ppc and wpp * ppc <= MAX_GROUP_WARPS)
-    if not ok:
-        raise ValueError(f"band_fwd has no configuration of {wpp} warps per "
-                         f"pair and {ppc} pairs per CTA at B={B}")
+def wide_configs(B: int):
+    """The (columns per lane, CTAs per pair) band_fwd takes at B > 512."""
+    return WIDE_CONFIGS.get(B, WIDE_RUNTIME)
+
+
+def _check_config(B: int, a: int, b: int) -> None:
+    if B > 512:
+        if (a, b) not in wide_configs(B):
+            raise ValueError(f"band_fwd has no configuration of {a} columns "
+                             f"per lane and {b} CTAs per pair at B={B}")
+    elif not (a in WARP_CONFIGS[B] and 1 <= b
+              and a * b <= MAX_GROUP_WARPS):
+        raise ValueError(f"band_fwd has no configuration of {a} warps per "
+                         f"pair and {b} pairs per CTA at B={B}")
 
 
 # ---------------------------------------------------------------- forward
 
 
 def band_fwd_config(B: int, batch: int, sms: int = 132):
-    """(warps per pair, pairs per CTA) of band_fwd at this width and batch
-    on a card of ``sms`` SMs: (0, 0) for B > 512 (one CTA per pair).  Once
-    the pairs outnumber the SMs, one warp per pair (no barrier in the row
-    loop); below, each pair is split over 4 warps at B 256 and 512, so
-    that the sub-partitions of its SM share it.  B 384 always takes 3
-    warps (one would need C = 12 columns per lane), B 128 always one.
-    Then as many pairs per CTA as keep at least one CTA on every SM.  On
-    the H100 this took the fastest configuration at every shape timed
-    (PERF.md)."""
+    """The configuration of band_fwd at this width and batch on a card of
+    ``sms`` SMs.
+
+    B <= 512: (warps per pair, pairs per CTA).  Once the pairs outnumber
+    the SMs, one warp per pair (no barrier in the row loop); below, each
+    pair is split over 4 warps at B 256 and 512, so that the
+    sub-partitions of its SM share it.  B 384 always takes 3 warps (one
+    would need C = 12 columns per lane), B 128 always one.  Then as many
+    pairs per CTA as keep at least one CTA on every SM.
+
+    B > 512: (columns per lane, CTAs per pair).  The largest cluster the
+    width is built for whose CTAs (batch x CTAs per pair) fit on the SMs
+    in one wave, else one CTA per pair (8 columns a lane).  Widths
+    without an instantiation run WIDE_RUNTIME.  On the H100 these rules
+    took the fastest configuration at every shape timed (PERF.md, PR 5
+    and PR 9)."""
     if B > 512:
-        return 0, 0
+        return _wide_config(B, batch, sms)
     wpps = WARP_CONFIGS[B]
     wpp = max(wpps) if batch <= sms else min(wpps)
     ppc = 1
@@ -124,6 +148,15 @@ def band_fwd_config(B: int, batch: int, sms: int = 132):
             ppc = p
             break
     return wpp, ppc
+
+
+def _wide_config(B: int, batch: int, sms: int):
+    # the largest cluster whose CTAs all fit on the SMs at once, else one
+    # CTA per pair: a split pays only on SMs that would idle, and in a
+    # second wave it would pay the seam exchange's latency a row for none
+    cfgs = wide_configs(B)
+    return max((c for c in cfgs if c[1] == 1 or batch * c[1] <= sms),
+               key=lambda c: c[1])
 
 
 def sm_count(dev) -> int:
@@ -135,8 +168,9 @@ def banded_dp(P, Tband, plen, tlen, dlo, B: int, Lp: int, x: int, o1: int,
               e1: int, o2: int, e2: int, config=None):
     """Forward banded DP.  Returns (tbs (Lp+1, batch, B) uint8, finals
     (batch, 5) int32 in PERM order [I1, I2, D1, D2, M], edge_min (batch,)
-    int32), exactly ops/wfa.py:_banded_dp's outputs.  ``config`` (warps
-    per pair, pairs per CTA) overrides band_fwd_config on CUDA tensors."""
+    int32), exactly ops/wfa.py:_banded_dp's outputs.  ``config`` (a pair
+    of ints as band_fwd_config gives) overrides band_fwd_config on CUDA
+    tensors."""
     if P.device.type == "cpu":
         return banded_dp_plain(P, Tband, plen, tlen, dlo, B, Lp, x, o1, e1,
                                o2, e2)
@@ -148,9 +182,9 @@ def banded_dp(P, Tband, plen, tlen, dlo, B: int, Lp: int, x: int, o1: int,
     _check(Tband, "Tband", torch.int8, (batch, Lp + B), dev)
     for name, t in (("plen", plen), ("tlen", tlen), ("dlo", dlo)):
         _check(t, name, torch.int32, (batch,), dev)
-    wpp, ppc = (config if config is not None
-                else band_fwd_config(B, batch, sm_count(dev)))
-    _check_config(B, wpp, ppc)
+    cfg0, cfg1 = (config if config is not None
+                  else band_fwd_config(B, batch, sm_count(dev)))
+    _check_config(B, cfg0, cfg1)
     tbs = torch.empty((Lp + 1, batch, B), dtype=torch.uint8, device=dev)
     finals = torch.empty((batch, 5), dtype=torch.int32, device=dev)
     edge_min = torch.empty((batch,), dtype=torch.int32, device=dev)
@@ -159,7 +193,7 @@ def banded_dp(P, Tband, plen, tlen, dlo, B: int, Lp: int, x: int, o1: int,
         err = lib.lcd_band_fwd(
             P.data_ptr(), Tband.data_ptr(), plen.data_ptr(), tlen.data_ptr(),
             dlo.data_ptr(), tbs.data_ptr(), finals.data_ptr(),
-            edge_min.data_ptr(), batch, B, Lp, x, o1, e1, o2, e2, wpp, ppc,
+            edge_min.data_ptr(), batch, B, Lp, x, o1, e1, o2, e2, cfg0, cfg1,
             torch.cuda.current_stream(dev).cuda_stream)
     kbuild.check(err, "band_fwd")
     _count("band_fwd", (B, Lp, batch))

@@ -1,9 +1,10 @@
 """On-demand nvcc build of the port's CUDA kernels (counterpart of
 longcalld_tpu/utils/cbuild.py, which does the same for the host C paths).
 
-At first use every ``longcalld_torch/csrc/*.cu`` is compiled by nvcc into
-one shared library with a plain C interface, bound with ctypes (no
-PyTorch headers, so a build takes seconds, not minutes).  The library
+At first use every ``longcalld_torch/csrc/*.cu`` is compiled by its own
+nvcc process, all started together, and the objects are linked into one
+shared library with a plain C interface, bound with ctypes (no PyTorch
+headers, so a build takes seconds, not minutes).  The library
 lives under ``<checkout>/build/longcalld_torch/`` and its name carries a
 hash of the sources and flags, so any source or flag change rebuilds.  The
 compiler writes to a per-process temp file that is ``os.replace``d into
@@ -32,7 +33,7 @@ _I = ctypes.c_int
 # C entry points: name -> argtypes (all return int, a cudaError_t)
 SIGNATURES = {
     # P, Tband, plen, tlen, dlo, tbs, finals, edge_min,
-    # batch, B, Lp, x, o1, e1, o2, e2, wpp, ppc, stream
+    # batch, B, Lp, x, o1, e1, o2, e2, cfg0, cfg1 (band_fwd_config), stream
     "lcd_band_fwd": [_P] * 8 + [_I] * 10 + [_P],
     # tbs, plen, tlen, dlo, finals, packed, b0, reload_count (nullable),
     # batch, B, Lp, stream
@@ -77,14 +78,33 @@ def build() -> str:
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.tmp{os.getpid()}.{threading.get_ident()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    nvcc = _nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    srcs = _sources()
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in srcs]
+    # one nvcc a source, all started together
+    procs = [subprocess.Popen([nvcc, *compile_flags, "-c", "-o", o, s],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(srcs, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [(" ".join(p.args), log) for p, log in zip(procs, logs)
+              if p.returncode != 0]
+    if not failed:
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *objs]
+        link = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append((" ".join(cmd), logs[-1]))
+    for o in objs:
+        if os.path.exists(o):
+            os.unlink(o)
+    build_log = "".join(logs)
+    if failed:
         if os.path.exists(tmp):
             os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{build_log}")
+        raise RuntimeError("nvcc failed: " + "\n".join(
+            f"{cmd}\n{log}" for cmd, log in failed))
     os.replace(tmp, so)
     with open(so + ".log", "w") as f:
         f.write(build_log)

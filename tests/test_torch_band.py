@@ -147,6 +147,9 @@ def _check_backward(tbs, finals, arrays, B, Lp):
     (4, 8, 384, 64),
     (5, 8, 1024, 64),
     (6, 4, 4096, 32),
+    (7, 6, 640, 48),
+    (8, 4, 1152, 40),
+    (9, 3, 2048, 36),
 ])
 def test_band_matches_jax(seed, batch, B, Lp):
     rng = np.random.default_rng(seed)
@@ -264,32 +267,69 @@ def test_warp_widths_match_jax(B, batch, Lp):
         assert int(edge[-1]) < int(fin[-1].min()), "escape pair stayed in band"
 
 
-@pytest.mark.parametrize("batch", [1, 3, 64, 70, 256, 512, 515, 2048])
+def _cu_configs(kind):
+    """The configurations csrc/band_fwd.cu instantiates: {B: {(a, b)}} from
+    its LCD_<kind>_CFG(B, C, n) lines (warp: (C, warps per pair); wide:
+    (columns per lane, CTAs per pair))."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(band.__file__), "..", "csrc",
+                            "band_fwd.cu")).read()
+    out = {}
+    for B, c, n in re.findall(rf"LCD_{kind}_CFG\((\d+), (\d+), (\d+)\)",
+                              src):
+        out.setdefault(int(B), set()).add((int(c), int(n)))
+    return out, src
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8, 64, 70, 127, 256, 512, 515,
+                                   2048])
 def test_band_fwd_config_is_built(batch):
-    """band_fwd_config gives every width of the warp design a configuration
-    the CUDA source instantiates (ops/band.py:WARP_CONFIGS), with at least
-    one CTA per SM where the batch allows it, and one CTA per pair above
-    B = 512; other configurations raise before any launch."""
+    """band_fwd_config gives every width a configuration the CUDA source
+    instantiates: at B <= 512 the warp design's (ops/band.py:WARP_CONFIGS),
+    with at least one CTA per SM where the batch allows it; above, the wide
+    design's (WIDE_CONFIGS at the compiled widths, WIDE_RUNTIME at the
+    others), a cluster only where all its CTAs fit on the SMs at once.
+    Other configurations raise before any launch."""
+    warp, _ = _cu_configs("WARP")
+    assert {B: {n for _, n in v} for B, v in warp.items()} == {
+        B: set(w) for B, w in band.WARP_CONFIGS.items()}
     for B in (128, 256, 384, 512):
         for sms in (132, 8):
             wpp, ppc = band.band_fwd_config(B, batch, sms)
             band._check_config(B, wpp, ppc)
             assert ppc == 1 or -(-batch // ppc) >= sms
-    assert band.band_fwd_config(1024, batch) == (0, 0)
-    band._check_config(1024, 0, 0)
-    for B, wpp, ppc in ((256, 3, 1), (256, 1, 9), (128, 4, 1), (1024, 1, 1),
-                        (512, 0, 0)):
+    wide, src = _cu_configs("WIDE")
+    assert wide == {B: set(v) for B, v in band.WIDE_CONFIGS.items()}
+    assert band.WIDE_RUNTIME == ((4, 1),)
+    assert "launch_wide<4, 0, 1>" in src
+    for B in range(640, band.BAND_MAX + 1, band.BAND_STEP):
+        for sms in (132, 8):
+            cfg = band.band_fwd_config(B, batch, sms)
+            band._check_config(B, *cfg)
+            assert cfg in wide.get(B, set(band.WIDE_RUNTIME))
+            # a cluster only where its CTAs fit on the SMs in one wave
+            assert cfg[1] == 1 or batch * cfg[1] <= sms
+    for B, a, b in ((256, 3, 1), (256, 1, 9), (128, 4, 1), (1024, 1, 1),
+                    (512, 0, 0), (1024, 0, 0), (1024, 8, 8), (640, 8, 1),
+                    (640, 4, 2), (4096, 16, 1), (2048, 4, 16)):
         with pytest.raises(ValueError, match="no configuration"):
-            band._check_config(B, wpp, ppc)
+            band._check_config(B, a, b)
 
 
 @pytest.mark.parametrize("B,batch,want", [
     (256, 64, (4, 1)), (256, 512, (1, 2)), (256, 2048, (1, 8)),
     (128, 64, (1, 1)), (384, 512, (3, 2)), (512, 64, (4, 1)),
+    (1024, 8, (8, 1)), (1024, 64, (8, 1)), (1024, 512, (8, 1)),
+    (2048, 8, (4, 8)), (2048, 64, (8, 1)), (2048, 512, (8, 1)),
+    (4096, 7, (4, 8)), (4096, 8, (4, 8)), (4096, 64, (8, 2)),
+    (4096, 512, (8, 1)), (640, 64, (4, 1)), (1152, 8, (4, 1)),
 ])
 def test_band_fwd_config_takes_the_fastest_timed(B, batch, want):
     """The configurations the H100 ran fastest at the main path's batch
-    buckets (PERF.md: tools/time_band_fwd.py, 132 SMs)."""
+    buckets, and at B > 512 at _submit_batch's wide buckets (8, 64, 512)
+    and the TB_BUDGET_BYTES launch of 7 pairs (PERF.md:
+    tools/time_band_fwd.py [--wide], 132 SMs)."""
     assert band.band_fwd_config(B, batch, 132) == want
 
 
