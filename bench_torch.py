@@ -403,9 +403,10 @@ def kernel_leg(dev):
         "n_dispatch": al.n_dispatch - n_dispatch,
         "launches": band.launch_counts(),
         "launch_shapes": band.launch_shapes(),
-        "note": "staging, both kernels, compact_events, the copies both "
-                "ways and the host's decode; product cells (pattern x "
-                "text) as the routing split counts them"}
+        "note": "staging, both kernels (band_bwd with its events "
+                "epilogue), the copies both ways and the host's decode; "
+                "product cells (pattern x text) as the routing split "
+                "counts them"}
     _log(f"kernel leg: band_fwd {fwd:.3f} ms, band_bwd {bwd:.4f} ms, full "
          f"path {best * 1e3:.2f} ms for {len(pairs)} pairs")
     return report, pairs, res

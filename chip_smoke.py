@@ -11,10 +11,15 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      batches 301 and 515,
      which the pairs per CTA of band_fwd's warp design do not divide, with
      plen == 0 dummies and a band-escape pair in every batch: outputs must
-     be bit-equal (tolerance 0, all are integers); each shape's CUDA-event
-     ms beside its bound (fwd_bound, bwd_bound below; band_bwd and
-     compact_events queued behind a sleep kernel, so the card's own time,
-     with their host-included time beside it); (b) every
+     be bit-equal (tolerance 0, all are integers), band_bwd through both
+     its entries, the walk alone (packed) and the events entry that
+     align_device launches (evs, meta), which must also equal
+     compact_events of the checked walk; each shape's CUDA-event ms
+     beside its bound (fwd_bound, bwd_bound, events_bound below; band_bwd's
+     entries and the walk + compact_events they replaced queued behind a
+     sleep kernel, so the card's own time, with their host-included time
+     beside it), the plain versions' ms from their one checking call; (b)
+     every
      configuration of band_fwd's warp design (warps per pair x pairs per
      CTA, at B 128, 256, 384 and 512) against the plain version at Lp 1024,
      batch 67, bit-equal; (c) band_bwd against its plain version on random
@@ -22,13 +27,17 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      runs of tests/torch_helpers.py:random_walk_inputs (an insertion chain
      of 151 columns, a D run of up to 46 rows: both leave band_bwd's
      shared-memory window) at Lp 33 and 1000, bit-equal, with window
-     reloads counted;
+     reloads counted, both entries each time; (d) the events entry on the
+     two walks the compaction cannot encode (more than K events; an
+     insertion chain of B columns) at B 256, n_ev -1 where it must be;
   4. the main path: a seeded 2 Mb diploid contig (four 500 kb windows,
      30x 15 kb HiFi-like reads) called three times through the port's
      run_call -- calibrated routing threshold, forced device
      (device_min_cells=1), host only -- with byte-equal VCF bodies, both
      kernels and the phasing EM launched in the forced run, and jax never
-     imported;
+     imported; then one pass of ops/wfa.py:align_device at (B 256, Lp
+     1024, batch 512) under torch.profiler, whose only card kernels may be
+     band_fwd's and band_bwd's (beside fills and copies);
   5. the whole-genome path: the same reads over a seeded 8 Mb contig
      (16 windows, so 8 explicit worker processes engage the window-range
      pool) called through run_call with host_procs=8 -- (a) device
@@ -58,8 +67,8 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      BatchAligner._submit_batch) at Lp 2048, plus B = Lp = 4096,
      bit-equal, with plen == 0 pairs, dummies and, where the pattern is
      long enough for its path to leave the band, a band-escape pair;
-     each shape's ms beside its bound (the plain versions' ms from their
-     one checking call); (b) bench_torch.py's
+     each shape's ms beside its bound, as in phase 3 (a); (b)
+     bench_torch.py's
      kernel leg: CUDA-event ms and DP cells/s of both kernels at bench.py's
      microbench shape (batch 64, B 2048, Lp 2000), and the full path,
      BatchAligner.align_many on bench.py's 64 pairs of 2000 bp, whose
@@ -67,7 +76,9 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      on random traceback bytes at B 1024 and 4096, bit-equal, with walks
      off the left edge and off the right edge counted apart (each must
      happen), and on the long runs at
-     B 1024 and 4096, Lp 33 and 1000, as in phase 3 (c); (d) BatchAligner.
+     B 1024 and 4096, Lp 33 and 1000, as in phase 3 (c), and the overflow
+     walks at B 4096 (the chain of 4096 columns too long for an event), as
+     in phase 3 (d); (d) BatchAligner.
      _align_batch on cuda:0 over seeded SV-like pairs (band buckets 1024,
      4096 and 5128), equal to the same aligner on CPU tensors (the plain
      versions), with both kernels launched at 1024 and 4096 and nothing
@@ -85,8 +96,8 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
 Every phase fails if jax or any module of the JAX package (longcalld_tpu)
 is in sys.modules, and its last line says so.
 The last lines are the card line, a JSON line of the kernels (with
-``shapes`` and ``bands`` lists per kernel), and {"ok": true, "device":
-{...}}.
+``shapes`` and ``bands`` lists per kernel; band_bwd's times and bound are
+its events entry's), and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -250,6 +261,59 @@ def bwd_bound(plen, Lp, n, int_rate):
     return bound_ms(walked * BWD_OPS_PER_ROW, nbytes, int_rate)
 
 
+def events_bound(plen, Lp, n, int_rate):
+    """band_bwd's events entry (the main path's): the walk reads a byte a
+    walked row, finals, lengths and edge_min once, and writes evs (batch,
+    K) and meta (batch, 4) int32 once; packed is not written."""
+    from longcalld_torch.ops.band import event_k
+    walked = int(np.asarray(plen).sum())
+    nbytes = walked + 36 * n + 4 * n * event_k(Lp) + 16 * n
+    return bound_ms(walked * BWD_OPS_PER_ROW, nbytes, int_rate)
+
+
+def old_tail(pk_b0, finals, edge_min, Lp):
+    """What ops/wfa.py:align_device ran after the walk before the events
+    epilogue: compact_events over the packed walk, the score min and the
+    meta stack (about 16 launches)."""
+    import torch
+
+    from longcalld_torch.ops import wfa
+    packed, b0 = pk_b0
+    evs, n_ev = wfa.compact_events(packed & ((1 << 14) - 1), packed >> 14,
+                                   Lp)
+    meta = torch.stack([finals.amin(dim=1), b0, edge_min, n_ev], dim=1)
+    return evs, meta.to(torch.int32)
+
+
+def check_events(args, edge_min, B, Lp, what, pk_b0=None, reloads=None):
+    """band_bwd's events entry on the card against its plain version and,
+    given the kernel's checked walk ``pk_b0``, against the compaction of
+    that walk (old_tail): bit-equal or raise.  Returns ((evs, meta), the
+    plain call's ms, max |diff|)."""
+    import torch
+
+    from longcalld_torch.ops import band
+    got = band.backward_events(*args, edge_min, B, Lp, reloads=reloads)
+    torch.cuda.synchronize()
+    plain, plain_ms = event_ms(lambda: band.backward_events_plain(
+        *args, edge_min, B, Lp))
+    refs = [("plain version", plain)]
+    if pk_b0 is not None:
+        refs.append(("compaction of the walk",
+                     old_tail(pk_b0, args[4], edge_min, Lp)))
+    err = 0
+    for name, want in refs:
+        diff = max(int((a.long() - b.long()).abs().max())
+                   for a, b in zip(got, want))
+        if diff or not all(a.shape == b.shape for a, b in zip(got, want)):
+            raise AssertionError(f"band_bwd's events entry differs from the "
+                                 f"{name} on {what} at B={B} Lp={Lp} "
+                                 f"batch={args[0].shape[1]}: max |diff| "
+                                 f"{diff}")
+        err = max(err, diff)
+    return got, plain_ms, err
+
+
 def cuda_ms(fn, reps, queued=False):
     """CUDA-event ms per call of ``fn`` over ``reps`` calls after one warm
     call.  Unqueued, a call the host issues more slowly than the card runs
@@ -290,14 +354,15 @@ def event_ms(fn):
     return out, start.elapsed_time(end)
 
 
-def check_kernels(shapes, plain_reps=1, plain_once=False):
-    """Kernel vs plain on the card; returns per-shape rows.  With
-    ``plain_once`` each plain version's ms is that of the one call the
-    check makes (seconds a call, host-bound), not of a warm call and
-    ``plain_reps`` more."""
+def check_kernels(shapes):
+    """Kernel vs plain on the card; returns per-shape rows.  Each plain
+    version's ms is that of the one call the check makes (seconds a call,
+    host-bound).  band_bwd is checked and timed through both entries: the
+    walk alone (packed) and the events entry that align_device launches,
+    beside the walk + compact_events it replaced (old_tail)."""
     import torch
 
-    from longcalld_torch.ops import band, wfa
+    from longcalld_torch.ops import band
     from longcalld_torch.ops.convert import from_numpy
 
     dev = torch.device("cuda:0")
@@ -322,7 +387,8 @@ def check_kernels(shapes, plain_reps=1, plain_once=False):
         if escape and not int(edge_k[3]) < int(fin[3]):
             raise AssertionError(f"escape pair did not escape the band at "
                                  f"B={B} Lp={Lp}")
-        bargs = (tbs_k, args[2], args[3], args[4], fin_k, B, Lp)
+        wargs = (tbs_k, args[2], args[3], args[4], fin_k)
+        bargs = (*wargs, B, Lp)
         pk_k, b0_k = band.backward_resolve(*bargs)
         torch.cuda.synchronize()
         (pk_p, b0_p, _), bwd_plain_ms = event_ms(
@@ -333,44 +399,56 @@ def check_kernels(shapes, plain_reps=1, plain_once=False):
             raise AssertionError(f"band_bwd differs from its plain version "
                                  f"at B={B} Lp={Lp} batch={n}: max |diff| "
                                  f"{err_b}")
+        _, ev_plain_ms, err_e = check_events(wargs, edge_k, B, Lp,
+                                             "DP output", pk_b0=(pk_k, b0_k))
         reps = max(2, min(20, 40960 // Lp))
-        # the walk's epilogue in ops/wfa.py:align_device
-        nins, ops = pk_k & ((1 << 14) - 1), pk_k >> 14
         fb, fb_by = fwd_bound(B, Lp, n, int_rate)
         bb, bb_by = bwd_bound(arrays[2], Lp, n, int_rate)
+        eb, eb_by = events_bound(arrays[2], Lp, n, int_rate)
+
+        def events():
+            return band.backward_events(*wargs, edge_k, B, Lp)
+
+        def walk_and_tail():
+            return old_tail(band.backward_resolve(*bargs), fin_k, edge_k, Lp)
+
         row = {
             "B": B, "Lp": Lp, "batch": n, "escape": escape,
             "config": list(band.band_fwd_config(B, n, band.sm_count(dev))),
             "fwd_ms": cuda_ms(lambda: band.banded_dp(*args, *dp), reps),
-            "fwd_plain_ms": fwd_plain_ms if plain_once else cuda_ms(
-                lambda: band.banded_dp_plain(*args, *dp), plain_reps),
-            # band_bwd and compact_events run faster than the host issues
-            # them: their ms are the card's (queued), the wrapper's and
-            # compact_events' host-included ones beside them
+            "fwd_plain_ms": fwd_plain_ms,
+            # band_bwd runs faster than the host issues it: its ms are the
+            # card's (queued), the host-included ones beside them
             "bwd_ms": cuda_ms(lambda: band.backward_resolve(*bargs), reps,
                               queued=True),
             "bwd_wrapper_ms": cuda_ms(lambda: band.backward_resolve(*bargs),
                                       reps),
-            "bwd_plain_ms": bwd_plain_ms if plain_once else cuda_ms(
-                lambda: band.backward_resolve_plain(*bargs), plain_reps),
-            "compact_ms": cuda_ms(lambda: wfa.compact_events(nins, ops, Lp),
-                                  reps, queued=True),
-            "compact_host_ms": cuda_ms(
-                lambda: wfa.compact_events(nins, ops, Lp), reps),
-            "fwd_err": err_f, "bwd_err": err_b,
+            "bwd_plain_ms": bwd_plain_ms,
+            "ev_ms": cuda_ms(events, reps, queued=True),
+            "ev_wrapper_ms": cuda_ms(events, reps),
+            "ev_plain_ms": ev_plain_ms,
+            # ~31 launches a call: 10 calls keep the queue behind the
+            # sleep kernel short enough for the host to fill it
+            "old_tail_ms": cuda_ms(walk_and_tail, min(reps, 10),
+                                   queued=True),
+            "old_tail_host_ms": cuda_ms(walk_and_tail, min(reps, 10)),
+            "fwd_err": err_f, "bwd_err": err_b, "ev_err": err_e,
             "fwd_bound_ms": fb, "fwd_bound_by": fb_by,
             "bwd_bound_ms": bb, "bwd_bound_by": bb_by,
+            "ev_bound_ms": eb, "ev_bound_by": eb_by,
         }
         rows.append(row)
         print(f"kernel B={B} Lp={Lp} batch={n}: band_fwd "
               f"{row['fwd_ms']:.3f} ms (configuration "
               f"{tuple(row['config'])}; bound {fb:.3f} ms, {fb_by}; plain "
-              f"{row['fwd_plain_ms']:.1f} ms), band_bwd {row['bwd_ms']:.3f} "
-              f"ms (bound {bb:.4f} ms, {bb_by}; plain "
-              f"{row['bwd_plain_ms']:.1f} ms; wrapper, host included "
-              f"{row['bwd_wrapper_ms']:.3f} ms), bit-equal; compact_events "
-              f"{row['compact_ms']:.3f} ms (host included "
-              f"{row['compact_host_ms']:.3f} ms)", flush=True)
+              f"{fwd_plain_ms:.1f} ms), band_bwd's walk {row['bwd_ms']:.3f} "
+              f"ms (bound {bb:.4f} ms, {bb_by}; plain {bwd_plain_ms:.1f} ms;"
+              f" wrapper, host included {row['bwd_wrapper_ms']:.3f} ms), "
+              f"events entry {row['ev_ms']:.3f} ms (bound {eb:.4f} ms, "
+              f"{eb_by}; plain {ev_plain_ms:.1f} ms; host included "
+              f"{row['ev_wrapper_ms']:.3f} ms) against walk + compact_events "
+              f"{row['old_tail_ms']:.3f} ms (host included "
+              f"{row['old_tail_host_ms']:.3f} ms), bit-equal", flush=True)
     return rows
 
 
@@ -459,13 +537,16 @@ def check_offband_walk(B, Lp=256, n=64):
     if not (torch.equal(pk_k, pk_p) and torch.equal(b0_k, b0_p)):
         raise AssertionError(f"band_bwd differs from its plain version on "
                              f"random traceback bytes at B={B}")
+    check_events(args, random_edge_min(B, n), B, Lp,
+                 "random traceback bytes", pk_b0=(pk_k, b0_k))
     n_off = {"left": int((off_edge == band.OFF_LEFT).sum()),
              "right": int((off_edge == band.OFF_RIGHT).sum())}
     if not all(n_off.values()):
         raise AssertionError(f"random walks at B={B} did not leave the band "
                              f"through both edges: {n_off}")
     print(f"band_bwd on random traceback bytes (B={B}, Lp={Lp}, batch={n}):"
-          f" bit-equal, walks off the band {n_off}", flush=True)
+          f" bit-equal (walk and events entry), walks off the band {n_off}",
+          flush=True)
     return n_off
 
 
@@ -494,13 +575,63 @@ def check_long_runs(B, n=16):
         if not (torch.equal(pk_k, pk_p) and torch.equal(b0_k, b0_p)):
             raise AssertionError(f"band_bwd differs from its plain version on "
                                  f"the long runs at B={B} Lp={Lp}")
+        ev_reloads = torch.zeros(1, dtype=torch.int32, device=dev)
+        check_events(args, random_edge_min(Lp, n), B, Lp, "the long runs",
+                     pk_b0=(pk_k, b0_k), reloads=ev_reloads)
         out[Lp] = int(reloads.item())
-        if out[Lp] <= 0:
-            raise AssertionError(f"the long runs at B={B} Lp={Lp} never "
-                                 "left band_bwd's window")
-    print(f"band_bwd on the long runs (B={B}, batch={n}): bit-equal, window "
-          f"reloads by Lp {out}", flush=True)
+        if out[Lp] <= 0 or int(ev_reloads.item()) != out[Lp]:
+            raise AssertionError(f"the long runs at B={B} Lp={Lp}: window "
+                                 f"reloads {out[Lp]} (walk), "
+                                 f"{int(ev_reloads.item())} (events entry)")
+    print(f"band_bwd on the long runs (B={B}, batch={n}): bit-equal (walk and"
+          f" events entry), window reloads by Lp {out}", flush=True)
     return out
+
+
+def check_overflow(B, Lp=1000, n=16):
+    """band_bwd's events entry on the walks the compaction cannot encode
+    (tests/torch_helpers.py:random_walk_inputs with ``overflow``): pair
+    n-2 with more than K events, pair n-1 with an insertion chain of B
+    columns (more than 4095 at B 4096), among random long-run walks;
+    bit-equal to the plain version and to the compaction of the checked
+    walk, with n_ev -1 where it must be.  Returns the meta rows' n_ev."""
+    import torch
+
+    from longcalld_torch.ops import band
+    from longcalld_torch.ops.convert import from_numpy
+    from torch_helpers import random_walk_inputs
+
+    rng = np.random.default_rng(27)
+    args = from_numpy(random_walk_inputs(rng, B, Lp, n, spread=60,
+                                         long_runs=True, overflow=True),
+                      torch.device("cuda:0"))
+    pk_b0 = band.backward_resolve(*args, B, Lp)
+    pk_p, b0_p, _ = band.backward_resolve_plain(*args, B, Lp)
+    torch.cuda.synchronize()
+    if not (torch.equal(pk_b0[0], pk_p) and torch.equal(pk_b0[1], b0_p)):
+        raise AssertionError(f"band_bwd differs from its plain version on "
+                             f"the overflow walks at B={B}")
+    (evs, meta), _, _ = check_events(args, random_edge_min(B, n), B, Lp,
+                                     "the overflow walks", pk_b0=pk_b0)
+    n_ev = meta[:, 3].tolist()
+    chain = -1 if B > 4095 else 1
+    if n_ev[n - 2] != -1 or n_ev[n - 1] != chain or int(evs[n - 1, 0]) != (
+            1 << 12 | min(B, 4095)):
+        raise AssertionError(f"the overflow walks at B={B}: n_ev {n_ev}, "
+                             f"chain event {int(evs[n - 1, 0]):#x}")
+    print(f"band_bwd's events entry on the overflow walks (B={B}, Lp={Lp}, "
+          f"batch={n}): bit-equal, n_ev {n_ev}", flush=True)
+    return n_ev
+
+
+def random_edge_min(seed, n):
+    """Seeded random edge_min values on the card, for walks of random
+    bytes (a generator of their own: the walks' inputs stay as they
+    were)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, 1 << 20, n).astype(
+        np.int32)).to("cuda:0")
 
 
 def bench_kernels():
@@ -587,6 +718,51 @@ def run_align_batch():
         print(f"_align_batch on cuda:0: {json.dumps(row)}, equal to its "
               "plain path", flush=True)
     return rows
+
+
+def profile_align_device(B=256, Lp=1024, n=512):
+    """Phase 4: one pass of ops/wfa.py:align_device under torch.profiler
+    at a main-path shape.  The only kernels on the card may be band_fwd's
+    and band_bwd's, one launch each, beside fills and copies: any other
+    (a cumsum, a scatter, a reduction) fails.  Returns the card's kernel
+    names with their ms."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from longcalld_torch.ops import band, wfa
+    from longcalld_torch.ops.convert import from_numpy
+
+    arrays, _ = make_batch(np.random.default_rng(99), n, Lp, B)
+    args = from_numpy(arrays, torch.device("cuda:0"))
+    dp = (B, Lp, X, O1, E1, O2, E2)
+    wfa.align_device(*args, *dp)                       # warm
+    torch.cuda.synchronize()
+    band.reset_launch_counts()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        wfa.align_device(*args, *dp)
+        torch.cuda.synchronize()
+    launches = band.launch_counts()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = re.sub(r"\s*\(.*", "", e.name.replace(
+            "(anonymous namespace)::", "")).removeprefix("void ")
+        by_name[name] = by_name.get(name, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3
+    kinds = {k: m.group(0) for k in by_name
+             if (m := re.search(r"band_fwd|band_bwd", k))}
+    other = [k for k in by_name if k not in kinds and not re.search(
+        r"memcpy|memset|fill", k, re.IGNORECASE)]
+    if (other or launches != {"band_fwd": 1, "band_bwd": 1}
+            or sorted(set(kinds.values())) != ["band_bwd", "band_fwd"]):
+        raise AssertionError(f"align_device at (B {B}, Lp {Lp}, batch {n}) "
+                             f"ran kernels {by_name}, launches {launches}")
+    print(f"align_device profiled at (B {B}, Lp {Lp}, batch {n}): card "
+          f"kernels {json.dumps(by_name)}, launches {launches}", flush=True)
+    return by_name
 
 
 def build_workload(d: str, seed: int = 2026, L: int = 2_000_000):
@@ -892,48 +1068,68 @@ def shape_key(row):
     return f"{row['B']},{row['Lp']},{row['batch']}"
 
 
-def kernel_entries(krows, brows, bench, arows, path_launches, path_shapes):
+def kernel_entries(krows, brows, bench, arows, path_launches, path_shapes,
+                   prof):
     """The ``kernels`` JSON list: per kernel the launch counts of each path
     (``path_launches``: JSON key -> {kernel: count}), the main path's
     launches by "B,Lp,batch" (``path_shapes``), the time and bound at
     phase 3's largest shape (no PyTorch call computes either kernel's
     function, so ``library_ms`` is null), every phase 3 shape's time,
     bound and share of it, the same at each shape the main path launched
-    with its launches (``main_path``; band_bwd's entry also has
-    compact_events' ms there), every phase 7 shape's time (band_fwd's
-    with its configuration) beside its bound, the bench-shape time and
-    the _align_batch launches per band bucket."""
+    with its launches (``main_path``), every phase 7 shape's time
+    (band_fwd's with its configuration) beside its bound, the bench-shape
+    time, the _align_batch launches per band bucket and the kernel's ms in
+    phase 4's profiled align_device (``prof``).  band_bwd's numbers are
+    those of its events entry, which align_device launches (``key``
+    "ev"); the walk alone (the packed entry) and the walk + compact_events
+    it replaced stand beside them."""
     big = max(krows, key=lambda r: (r["Lp"], r["batch"]))
     kernels = []
     for name, src, ref, key in (
             ("band_fwd", "longcalld_torch/csrc/band_fwd.cu",
              "longcalld_tpu/ops/pallas_band.py:76", "fwd"),
             ("band_bwd", "longcalld_torch/csrc/band_bwd.cu",
-             "longcalld_tpu/ops/pallas_band.py:355", "bwd")):
+             "longcalld_tpu/ops/pallas_band.py:355", "ev")):
+        bwd = key == "ev"
+
+        def walk(r):
+            """band_bwd's walk alone and the round it replaced."""
+            return {"walk_ms": r["bwd_ms"], "walk_plain_ms": r["bwd_plain_ms"],
+                    "walk_bound_ms": r["bwd_bound_ms"],
+                    "walk_and_compact_events_ms": r["old_tail_ms"]} if bwd \
+                else {}
+
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": ref,
+            **({"entry": "lcd_band_bwd_events", "also_replaces":
+                "longcalld_tpu/ops/wfa.py:188 (_compact_events, XLA) and "
+                "the meta row of :359-387"} if bwd else {}),
             **{k: v[name] for k, v in path_launches.items()},
             "launch_shapes": path_shapes[name],
-            "max_abs_err": max(r[f"{key}_err"] for r in krows + brows),
+            "max_abs_err": max(r[f"{k}_err"] for r in krows + brows
+                               for k in ((key, "bwd") if bwd else (key,))),
             "ms": big[f"{key}_ms"], "plain_ms": big[f"{key}_plain_ms"],
             "bound_ms": big[f"{key}_bound_ms"],
             "bound_by": big[f"{key}_bound_by"], "library_ms": None,
             "shape": {"B": big["B"], "Lp": big["Lp"], "batch": big["batch"]},
+            **walk(big),
+            "profiled_align_device_ms": sum(
+                v for k, v in prof.items() if name in k),
             "shapes": [{
                 "B": r["B"], "Lp": r["Lp"], "batch": r["batch"],
                 **({"config": r["config"]} if key == "fwd" else {}),
                 "ms": r[f"{key}_ms"], "bound_ms": r[f"{key}_bound_ms"],
                 "bound_by": r[f"{key}_bound_by"],
-                "share": r[f"{key}_bound_ms"] / r[f"{key}_ms"]}
+                "share": r[f"{key}_bound_ms"] / r[f"{key}_ms"], **walk(r)}
                 for r in krows],
             "main_path": [{
                 "B": r["B"], "Lp": r["Lp"], "batch": r["batch"],
                 "launches": path_shapes[name][shape_key(r)],
                 "ms": r[f"{key}_ms"], "bound_ms": r[f"{key}_bound_ms"],
-                **({"wrapper_ms": r["bwd_wrapper_ms"],
-                    "compact_events_ms": r["compact_ms"],
-                    "compact_events_host_ms": r["compact_host_ms"]}
-                   if key == "bwd" else {})}
+                **({"wrapper_ms": r["ev_wrapper_ms"],
+                    "walk_wrapper_ms": r["bwd_wrapper_ms"],
+                    "walk_and_compact_events_host_ms": r["old_tail_host_ms"],
+                    **walk(r)} if bwd else {})}
                 for r in krows if shape_key(r) in path_shapes[name]],
             "bands": [{
                 "B": r["B"], "Lp": r["Lp"], "batch": r["batch"],
@@ -942,10 +1138,12 @@ def kernel_entries(krows, brows, bench, arows, path_launches, path_shapes):
                 "bound_ms": r[f"{key}_bound_ms"],
                 "bound_by": r[f"{key}_bound_by"],
                 "share": r[f"{key}_bound_ms"] / r[f"{key}_ms"],
-                "max_abs_err": r[f"{key}_err"]}
+                "max_abs_err": r[f"{key}_err"], **walk(r)}
                 for r in brows],
+            # bench.py times the Pallas walk alone; so does its port
             "bench_shape": {"B": bench["B"], "Lp": bench["Lp"],
                             "batch": bench["batch"],
+                            **({"entry": "lcd_band_bwd"} if bwd else {}),
                             "ms": bench[name]["ms"],
                             "cells_per_s": bench[name]["cells_per_s"],
                             "bound_ms": bench[name]["bound_ms"]},
@@ -984,6 +1182,7 @@ def main() -> int:
     check_configs()
     check_offband_walk(256)
     check_long_runs(256)
+    check_overflow(256)
     print(guard("3"), flush=True)
 
     # phase 4's contig stays for phase 6 (c); the directory's finalizer
@@ -1015,6 +1214,7 @@ def main() -> int:
         raise AssertionError("host-only run launched a kernel")
     print(f"VCF bodies byte-equal across calibrated/forced/host: "
           f"{len(bodies['host'])} records", flush=True)
+    prof = profile_align_device()
     print(guard("4"), flush=True)
 
     mode = nvidia_smi("compute_mode")
@@ -1096,16 +1296,18 @@ def main() -> int:
 
     # phase 7: the other band widths
     t7 = time.perf_counter()
-    brows = check_kernels(BAND_SHAPES, plain_once=True)
+    brows = check_kernels(BAND_SHAPES)
     bench = bench_kernels()
     walks = {b: check_offband_walk(b) for b in WALK_BANDS}
     long_runs = {b: check_long_runs(b) for b in WALK_BANDS}
+    overflow = check_overflow(4096)
     arows = run_align_batch()
     wide_cfgs = check_wide_configs()
     print(f"band widths: both kernels bit-equal at B={list(BANDS)}, "
           f"{len(wide_cfgs)} wide configurations of band_fwd bit-equal, "
           f"{sum(r['escape'] for r in brows)} batches with an escape pair; "
-          f"walks off band {walks}; long-run reloads {long_runs}; phase 7 "
+          f"walks off band {walks}; long-run reloads {long_runs}; overflow "
+          f"n_ev at B 4096 {overflow}; phase 7 "
           f"took "
           f"{time.perf_counter() - t7:.1f} s", flush=True)
     print(guard("7"), flush=True)
@@ -1121,7 +1323,7 @@ def main() -> int:
         "launches": forced["launches"],
         "procs_launches": pdev["worker_launches"],
         "mesh_launches": mrep["launches"],
-        "soak_launches": soak_launches}, forced["launch_shapes"])
+        "soak_launches": soak_launches}, forced["launch_shapes"], prof)
     print(f"chip_smoke: phases 1-8 took {time.perf_counter() - t_smoke:.1f} s",
           flush=True)
     print(card)

@@ -9,6 +9,23 @@
 //   out: packed (Lp, batch) int32 = op<<14 | min(n_ins, 16383) for rows
 //        Lp..1 (op 0 inactive, 1 M, 2 D); b0 (batch,) int32.
 //
+// The events epilogue (entry lcd_band_bwd_events) also does the work of
+// the XLA compaction that follows the Pallas kernel in
+// longcalld_tpu/ops/wfa.py:_align_device_pallas (_compact_events :188-239,
+// the score min and the meta stack), bit for bit:
+//   in : edge_min (batch,) int32, the forward kernel's
+//   out: evs (batch, K) int32, the event rows (a D row, or an I row, whose
+//        n_ins is > 0) in rising r = Lp - i, each r<<14 | op<<12 |
+//        min(n_ins, 4095); slots from the event count to K are 0, events
+//        past K are counted and not stored;
+//        meta (batch, 4) int32 = [min of finals, b0, edge_min, n_ev], n_ev
+//        -1 when a row has n_ins > 4095 or the count exceeds K.
+// The walk emits its rows in rising r, so the compaction needs no prefix
+// sum: each event takes the next slot of a warp-uniform counter, a D run
+// of len rows len consecutive slots, a lane a row, in one store.  packed
+// is then not written at all (null): the walk's memory traffic is a byte
+// per walked row in, and K + 4 int32 per pair out.
+//
 // The walk.  One warp per pair walks rows plen..1 with the band position
 // and state as scalars (the Pallas/lax forms carry them one-hot, a TPU way
 // around gathers).  Every lane holds the same position and state, so
@@ -176,15 +193,24 @@ struct Ring {
   }
 };
 
+// An event row of the walk's packed form (op<<14 | n_ins, n_ins unclamped)
+// as the compaction stores it: r<<14 | op<<12 | min(n_ins, 4095).  r < Lp
+// <= 131072 keeps it below 2^31.
+__device__ __forceinline__ int32_t event_code(size_t r, int row) {
+  return (int32_t)(r << 14) | (row >> 14) << 12 | min(row & 0x3fff, 4095);
+}
+
 __global__ void __launch_bounds__(32 * WARPS_PER_CTA)
 band_bwd_kernel(const uint8_t* __restrict__ tbs,
                 const int32_t* __restrict__ plen_a,
                 const int32_t* __restrict__ tlen_a,
                 const int32_t* __restrict__ dlo_a,
                 const int32_t* __restrict__ finals,
+                const int32_t* __restrict__ edge_min,
                 int32_t* __restrict__ packed, int32_t* __restrict__ b0,
+                int32_t* __restrict__ evs, int32_t* __restrict__ meta,
                 int32_t* __restrict__ reload_count,
-                int batch, int B, int Lp) {
+                int batch, int B, int Lp, int K) {
   __shared__ __align__(16) uint8_t ring[WARPS_PER_CTA][2 * WIN_BYTES];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -200,9 +226,14 @@ band_bwd_kernel(const uint8_t* __restrict__ tbs,
     if (f[c] < fmin) { fmin = f[c]; first = c; }
   }
 
-  // rows Lp..top+1 are inactive: zeros, stored in bulk
+  // rows Lp..top+1 are inactive: zeros, stored in bulk (never events)
   const int top = max(0, min(pl, Lp));
-  for (int r = lane; r < Lp - top; r += 32) packed[(size_t)r * batch + k] = 0;
+  if (packed != nullptr)
+    for (int r = lane; r < Lp - top; r += 32) packed[(size_t)r * batch + k] = 0;
+  // the events: n_ev counts every event row, the first K are stored
+  int32_t* ev = evs == nullptr ? nullptr : evs + (size_t)k * K;
+  int n_ev = 0;
+  bool wide = false;                            // a row with n_ins > 4095
 
   const size_t row_stride = (size_t)batch * B;
   const uint8_t* col0 = tbs + (size_t)k * B;
@@ -228,9 +259,15 @@ band_bwd_kernel(const uint8_t* __restrict__ tbs,
     if (pos == OFF) {
       // off the band: this row by its state, then M rows to the end
       const int out = s == 3 || s == 4 ? D_ROW : M_ROW + (s == 1 || s == 2);
-      if (lane == 0) packed[r * batch + k] = out;
-      for (size_t q = r + 1 + lane; q < (size_t)Lp; q += 32)
-        packed[q * batch + k] = M_ROW;
+      if (packed != nullptr) {
+        if (lane == 0) packed[r * batch + k] = out;
+        for (size_t q = r + 1 + lane; q < (size_t)Lp; q += 32)
+          packed[q * batch + k] = M_ROW;
+      }
+      if (ev != nullptr && out != M_ROW) {      // an I (n_ins 1) or D row
+        if (lane == 0 && n_ev < K) ev[n_ev] = event_code(r, out);
+        ++n_ev;
+      }
       break;
     }
     if (s == 1 || s == 2) {                     // I: collapse the chain
@@ -256,7 +293,13 @@ band_bwd_kernel(const uint8_t* __restrict__ tbs,
         w.ensure(i, pos, s);
         s = w.at(i, pos) & 7;
       }
-      if (lane == 0) packed[r * batch + k] = M_ROW + min(n_ins, 16383);
+      if (lane == 0 && packed != nullptr)
+        packed[r * batch + k] = M_ROW + min(n_ins, 16383);
+      if (ev != nullptr) {                      // n_ins >= 1: an event
+        if (lane == 0 && n_ev < K) ev[n_ev] = event_code(r, M_ROW + n_ins);
+        ++n_ev;
+        wide |= n_ins > 4095;
+      }
       --i;
       continue;
     }
@@ -275,7 +318,13 @@ band_bwd_kernel(const uint8_t* __restrict__ tbs,
     }
     const unsigned m = __ballot_sync(FULL, ends);
     const int len = m ? __ffs(m) : n;           // the ending row included
-    if (lane < len) packed[(r + lane) * batch + k] = d ? D_ROW : M_ROW;
+    if (lane < len && packed != nullptr)
+      packed[(r + lane) * batch + k] = d ? D_ROW : M_ROW;
+    if (d && ev != nullptr) {                   // a D run: len events
+      if (lane < len && n_ev + lane < K)
+        ev[n_ev + lane] = event_code(r + lane, D_ROW);
+      n_ev += len;
+    }
     if (d) {
       if (m) s = 0;
       pos = pos + len >= B ? OFF : pos + len;
@@ -284,8 +333,19 @@ band_bwd_kernel(const uint8_t* __restrict__ tbs,
     }
     i -= len;
   }
+  const int b0k = pos == OFF ? 0 : pos;
+  if (ev != nullptr) {                          // the zero tail, the meta row
+    for (int q = min(n_ev, K) + lane; q < K; q += 32) ev[q] = 0;
+    if (lane == 0) {
+      int32_t* m = meta + (size_t)k * 4;
+      m[0] = fmin;
+      m[1] = b0k;
+      m[2] = edge_min[k];
+      m[3] = wide || n_ev > K ? -1 : n_ev;
+    }
+  }
   if (lane == 0) {
-    b0[k] = pos == OFF ? 0 : pos;
+    if (b0 != nullptr) b0[k] = b0k;
     if (reload_count != nullptr && w.reloads) atomicAdd(reload_count,
                                                         w.reloads);
   }
@@ -297,18 +357,44 @@ band_bwd_kernel(const uint8_t* __restrict__ tbs,
 // pallas_band.py:18) and tbs 16-byte aligned; else cudaErrorInvalidValue.
 // reload_count is null or one int32 on the device, to which the launch adds
 // its synchronous window reloads.
-extern "C" int lcd_band_bwd(const void* tbs, const void* plen,
-                            const void* tlen, const void* dlo,
-                            const void* finals, void* packed, void* b0,
-                            void* reload_count, int batch, int B, int Lp,
-                            void* stream) {
+static int launch(const void* tbs, const void* plen, const void* tlen,
+                  const void* dlo, const void* finals, const void* edge_min,
+                  void* packed, void* b0, void* evs, void* meta,
+                  void* reload_count, int batch, int B, int Lp, int K,
+                  void* stream) {
   if (B < 128 || B > 4096 || B % 128 != 0) return (int)cudaErrorInvalidValue;
   if ((uintptr_t)tbs % 16 != 0) return (int)cudaErrorInvalidValue;
   if (batch <= 0) return 0;
   const int ctas = (batch + WARPS_PER_CTA - 1) / WARPS_PER_CTA;
   band_bwd_kernel<<<ctas, 32 * WARPS_PER_CTA, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)tbs, (const int32_t*)plen, (const int32_t*)tlen,
-      (const int32_t*)dlo, (const int32_t*)finals, (int32_t*)packed,
-      (int32_t*)b0, (int32_t*)reload_count, batch, B, Lp);
+      (const int32_t*)dlo, (const int32_t*)finals, (const int32_t*)edge_min,
+      (int32_t*)packed, (int32_t*)b0, (int32_t*)evs, (int32_t*)meta,
+      (int32_t*)reload_count, batch, B, Lp, K);
   return (int)cudaGetLastError();
+}
+
+// The walk alone: packed and b0.
+extern "C" int lcd_band_bwd(const void* tbs, const void* plen,
+                            const void* tlen, const void* dlo,
+                            const void* finals, void* packed, void* b0,
+                            void* reload_count, int batch, int B, int Lp,
+                            void* stream) {
+  if (packed == nullptr || b0 == nullptr) return (int)cudaErrorInvalidValue;
+  return launch(tbs, plen, tlen, dlo, finals, nullptr, packed, b0, nullptr,
+                nullptr, reload_count, batch, B, Lp, 0, stream);
+}
+
+// The walk with its events epilogue: evs (batch, K) and meta (batch, 4);
+// packed is not written.  K >= 1 (ops/band.py:event_k(Lp)).
+extern "C" int lcd_band_bwd_events(const void* tbs, const void* plen,
+                                   const void* tlen, const void* dlo,
+                                   const void* finals, const void* edge_min,
+                                   void* evs, void* meta, void* reload_count,
+                                   int batch, int B, int Lp, int K,
+                                   void* stream) {
+  if (edge_min == nullptr || evs == nullptr || meta == nullptr || K < 1)
+    return (int)cudaErrorInvalidValue;
+  return launch(tbs, plen, tlen, dlo, finals, edge_min, nullptr, nullptr, evs,
+                meta, reload_count, batch, B, Lp, K, stream);
 }

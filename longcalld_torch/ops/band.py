@@ -4,6 +4,9 @@ Counterpart of longcalld_tpu/ops/pallas_band.py (the two Pallas kernels,
 banded_dp_pallas :285-341 and backward_resolve_pallas :451-495) and of
 their lax twins in longcalld_tpu/ops/wfa.py (_banded_dp :53-179,
 _backward_resolve :403-494).  Same contracts, bit for bit.
+``backward_events`` is the walk with the rest of the JAX package's device
+program after it (wfa.py:_align_device_pallas :359-387: _compact_events
+:188-239, the score and the meta row) done in the walk kernel's epilogue.
 
 Each entry point has two forms:
 * a hand-written CUDA kernel (csrc/band_fwd.cu, csrc/band_bwd.cu), built by
@@ -19,7 +22,8 @@ Each entry point has two forms:
   takes any B.
 A CUDA tensor never falls back to the plain version: the wrapper launches
 the kernel or raises (``ValueError`` for any other width, before the
-launch).  Each launch adds one to ``launch_counts()``.
+launch).  Each launch adds one to ``launch_counts()``; both traceback
+entries count under ``band_bwd``.
 
 Source notes (what each kernel replaces, what bounds it on the card and
 what its design does about it) head the .cu files.
@@ -403,3 +407,97 @@ def backward_resolve_plain(tbs, plen, tlen, dlo, finals, B: int, Lp: int):
             torch.int32)
     b0 = torch.where(pos == OFF, 0, pos).to(torch.int32)
     return packed, b0, off_edge
+
+
+# ----------------------------------------------------------------- events
+
+
+def event_k(Lp: int) -> int:
+    """Event-buffer width of the compacted traceback (wfa.py:182-185)."""
+    return max(512, Lp // 8)
+
+
+def compact_events(nins: torch.Tensor, ops: torch.Tensor, Lp: int):
+    """Run-length compaction of the traceback walk: the event rows (op = D
+    or n_ins > 0) of each pair, in row order, encoded row<<14 | op<<12 |
+    min(n_ins, 4095) into a (batch, K) int32 array.  Returns (evs, n_ev)
+    with n_ev = -1 for pairs that cannot be encoded (n_ins > 4095 or more
+    than K events); their first K events are still written, as in
+    wfa.py:_compact_events."""
+    K = event_k(Lp)
+    rows, batch = nins.shape
+    i32 = torch.int32
+    ops32 = ops.to(i32)
+    ev = (ops32 == 2) | (nins > 0)
+    row_ids = torch.arange(rows, dtype=i32, device=nins.device)[:, None]
+    val = (row_ids << 14) | (ops32 << 12) | nins.clamp_max(4095).to(i32)
+    ordv = torch.cumsum(ev.to(i32), dim=0, dtype=i32) - 1
+    n_ev = ev.sum(dim=0, dtype=i32)
+    bad = (nins > 4095).any(dim=0) | (n_ev > K)
+    # non-events and events past K land in a spill column that is dropped
+    slot = torch.where(ev & (ordv < K), ordv, K).to(torch.int64)
+    evs = torch.zeros((batch, K + 1), dtype=i32, device=nins.device)
+    evs.scatter_(1, slot.t(), val.t())
+    return evs[:, :K].contiguous(), torch.where(bad, -1, n_ev)
+
+
+def backward_events(tbs, plen, tlen, dlo, finals, edge_min, B: int, Lp: int,
+                    out=None, reloads=None):
+    """Traceback walk and its event compaction in one launch.  Returns
+    (evs (batch, K) int32, K = event_k(Lp), meta (batch, 4) int32 =
+    [score, b0, edge_min, n_ev]), exactly ops/wfa.py:_align_device's
+    outputs after the forward DP (backward_events_plain spells them out).
+    ``out``, a pair of contiguous int32 tensors of those shapes (rows of
+    larger ones), receives them instead of new tensors; ``reloads`` is as
+    in backward_resolve."""
+    K = event_k(Lp)
+    if tbs.device.type == "cpu":
+        evs, meta = backward_events_plain(tbs, plen, tlen, dlo, finals,
+                                          edge_min, B, Lp)
+        if out is None:
+            return evs, meta
+        out[0].copy_(evs)
+        out[1].copy_(meta)
+        return out
+    if tbs.device.type != "cuda":
+        raise ValueError(f"unsupported device {tbs.device}")
+    _check_band(B)
+    batch, dev = tbs.shape[1], tbs.device
+    _check(tbs, "tbs", torch.uint8, (Lp + 1, batch, B), dev)
+    for name, t in (("plen", plen), ("tlen", tlen), ("dlo", dlo),
+                    ("edge_min", edge_min)):
+        _check(t, name, torch.int32, (batch,), dev)
+    _check(finals, "finals", torch.int32, (batch, 5), dev)
+    if tbs.data_ptr() % 16:
+        raise ValueError("tbs must be 16-byte aligned (the kernel copies "
+                         "16-byte chunks of it)")
+    if reloads is not None:
+        _check(reloads, "reloads", torch.int32, (1,), dev)
+    if out is None:
+        out = (torch.empty((batch, K), dtype=torch.int32, device=dev),
+               torch.empty((batch, 4), dtype=torch.int32, device=dev))
+    evs, meta = out
+    _check(evs, "evs", torch.int32, (batch, K), dev)
+    _check(meta, "meta", torch.int32, (batch, 4), dev)
+    lib = kbuild.load()
+    with torch.cuda.device(dev):
+        err = lib.lcd_band_bwd_events(
+            tbs.data_ptr(), plen.data_ptr(), tlen.data_ptr(), dlo.data_ptr(),
+            finals.data_ptr(), edge_min.data_ptr(), evs.data_ptr(),
+            meta.data_ptr(), None if reloads is None else reloads.data_ptr(),
+            batch, B, Lp, K, torch.cuda.current_stream(dev).cuda_stream)
+    kbuild.check(err, "band_bwd")
+    _count("band_bwd", (B, Lp, batch))
+    return evs, meta
+
+
+def backward_events_plain(tbs, plen, tlen, dlo, finals, edge_min, B: int,
+                          Lp: int):
+    """Plain PyTorch form of backward_events: backward_resolve_plain, then
+    compact_events over its walk and the meta row, as wfa.py:_align_device
+    chains _backward_resolve, _compact_events and the stack."""
+    packed, b0, _ = backward_resolve_plain(tbs, plen, tlen, dlo, finals, B,
+                                           Lp)
+    evs, n_ev = compact_events(packed & ((1 << 14) - 1), packed >> 14, Lp)
+    meta = torch.stack([finals.amin(dim=1), b0, edge_min, n_ev], dim=1)
+    return evs, meta.to(torch.int32)

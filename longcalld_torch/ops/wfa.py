@@ -1,11 +1,12 @@
 """Batched banded gap-affine-2p alignment on the device: the port of
 longcalld_tpu/ops/wfa.py.
 
-* ``compact_events`` and ``align_device`` are the XLA programs
-  wfa.py:_compact_events (:188-239) and _align_device / _align_device_pallas
-  (:242-256, :359-387) written as PyTorch code: forward DP kernel, traceback
-  kernel (ops/band.py), then the event compaction as a cumsum plus a
-  scatter.  Outputs are bit-equal.
+* ``align_device`` is the device program wfa.py:_align_device /
+  _align_device_pallas (:242-256, :359-387): the forward DP kernel, then
+  the traceback kernel, whose epilogue does _compact_events (:188-239) and
+  the meta row (ops/band.py:backward_events); ``compact_events``, the
+  compaction's torch form, is that kernel's plain version.  Outputs are
+  bit-equal.
 * ``BatchAligner``, ``get_aligner``, ``aligner_totals`` and
   ``calibrate_min_cells`` are wfa.py:505-962 carried over: the memo, size
   and band routing, buckets, the reversal trick for the left-gap
@@ -44,59 +45,32 @@ def _copy_result(r: AlnResult) -> AlnResult:
                      r.text_alg.copy(), r.score)
 
 
-def _event_k(Lp: int) -> int:
-    """Event-buffer width of the compacted traceback (wfa.py:182-185)."""
-    return max(512, Lp // 8)
-
-
-def compact_events(nins: torch.Tensor, ops: torch.Tensor, Lp: int):
-    """Run-length compaction of the traceback walk: the event rows (op = D
-    or n_ins > 0) of each pair, in row order, encoded row<<14 | op<<12 |
-    min(n_ins, 4095) into a (batch, K) int32 array.  Returns (evs, n_ev)
-    with n_ev = -1 for pairs that cannot be encoded (n_ins > 4095 or more
-    than K events); their first K events are still written, as in
-    wfa.py:_compact_events."""
-    K = _event_k(Lp)
-    rows, batch = nins.shape
-    i32 = torch.int32
-    ops32 = ops.to(i32)
-    ev = (ops32 == 2) | (nins > 0)
-    row_ids = torch.arange(rows, dtype=i32, device=nins.device)[:, None]
-    val = (row_ids << 14) | (ops32 << 12) | nins.clamp_max(4095).to(i32)
-    ordv = torch.cumsum(ev.to(i32), dim=0, dtype=i32) - 1
-    n_ev = ev.sum(dim=0, dtype=i32)
-    bad = (nins > 4095).any(dim=0) | (n_ev > K)
-    # non-events and events past K land in a spill column that is dropped
-    slot = torch.where(ev & (ordv < K), ordv, K).to(torch.int64)
-    evs = torch.zeros((batch, K + 1), dtype=i32, device=nins.device)
-    evs.scatter_(1, slot.t(), val.t())
-    return evs[:, :K].contiguous(), torch.where(bad, -1, n_ev)
+# the compaction's torch form (the events kernel's plain version) and its
+# buffer width live in ops/band.py beside the kernel; kept here by name
+_event_k = band.event_k
+compact_events = band.compact_events
 
 
 def align_device(P, Tband, plen, tlen, dlo, B: int, Lp: int, x: int, o1: int,
                  e1: int, o2: int, e2: int):
-    """Forward DP + traceback + event compaction.  Returns (evs (batch, K)
-    int32, meta (batch, 4) int32 = [score, b0, edge_min, n_ev])."""
-    batch = P.shape[0]
+    """Forward DP, then the traceback walk with its event compaction, per
+    chunk of the batch.  Returns (evs (batch, K) int32, meta (batch, 4)
+    int32 = [score, b0, edge_min, n_ev]).  On CUDA that is two kernel
+    launches a chunk; each chunk's walk writes its rows of the outputs."""
+    batch, dev = P.shape[0], P.device
     step = max(1, TB_BUDGET_BYTES // ((Lp + 1) * B))
-    evs_l, meta_l = [], []
+    evs = torch.empty((batch, band.event_k(Lp)), dtype=torch.int32,
+                      device=dev)
+    meta = torch.empty((batch, 4), dtype=torch.int32, device=dev)
     for k0 in range(0, batch, step):
         sl = slice(k0, min(k0 + step, batch))
         tbs, finals, edge_min = band.banded_dp(
             P[sl], Tband[sl], plen[sl], tlen[sl], dlo[sl], B, Lp, x, o1, e1,
             o2, e2)
-        packed, b0 = band.backward_resolve(tbs, plen[sl], tlen[sl], dlo[sl],
-                                           finals, B, Lp)
+        band.backward_events(tbs, plen[sl], tlen[sl], dlo[sl], finals,
+                             edge_min, B, Lp, out=(evs[sl], meta[sl]))
         del tbs
-        evs, n_ev = compact_events(packed & ((1 << 14) - 1), packed >> 14,
-                                   Lp)
-        score = finals.amin(dim=1)
-        evs_l.append(evs)
-        meta_l.append(torch.stack([score, b0, edge_min, n_ev], dim=1)
-                      .to(torch.int32))
-    if len(evs_l) == 1:
-        return evs_l[0], meta_l[0]
-    return torch.cat(evs_l, dim=0), torch.cat(meta_l, dim=0)
+    return evs, meta
 
 
 _CALIBRATED_MIN_CELLS: dict = {}

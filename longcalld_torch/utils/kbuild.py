@@ -38,6 +38,9 @@ SIGNATURES = {
     # tbs, plen, tlen, dlo, finals, packed, b0, reload_count (nullable),
     # batch, B, Lp, stream
     "lcd_band_bwd": [_P] * 8 + [_I] * 3 + [_P],
+    # tbs, plen, tlen, dlo, finals, edge_min, evs, meta, reload_count
+    # (nullable), batch, B, Lp, K, stream
+    "lcd_band_bwd_events": [_P] * 9 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

@@ -2,7 +2,7 @@
 
 (a) No ``import`` of jax or of the JAX package (longcalld_tpu), at module
     level or inside a function, in any .py under longcalld_torch/, in
-    bench_torch.py, chip_smoke.py, tools/time_band_*.py,
+    bench_torch.py, chip_smoke.py, tools/*.py (the card's timing tools),
     tests/torch_helpers.py (the test helpers that chip_smoke.py and
     longcalld_torch/entry.py import) or tests/soak_torch.py (the port's
     soak); one case per file.
@@ -69,9 +69,10 @@ def _files(top, exts):
 
 def _port_python():
     return (["longcalld_torch/" + f for f in _files(PORT, (".py",))]
-            + ["bench_torch.py", "chip_smoke.py", "tools/time_band_fwd.py",
-               "tools/time_band_bwd.py", "tests/torch_helpers.py",
-               "tests/soak_torch.py"])
+            + ["bench_torch.py", "chip_smoke.py"]
+            + ["tools/" + f for f in _files(os.path.join(ROOT, "tools"),
+                                            (".py",))]
+            + ["tests/torch_helpers.py", "tests/soak_torch.py"])
 
 
 def _imports(tree):

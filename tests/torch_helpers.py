@@ -128,7 +128,8 @@ def build_contig(d, seed, length, coverage=20, read_len=10_000,
     return fa, bam, n_reads, len(truth)
 
 
-def random_walk_inputs(rng, B, Lp, n, spread=20, long_runs=False):
+def random_walk_inputs(rng, B, Lp, n, spread=20, long_runs=False,
+                       overflow=False):
     """Inputs of the band walk (tbs, plen, tlen, dlo, finals) made of
     random traceback bytes and finals.  Extension bits are set often, so
     the walk takes every branch and falls off either band edge, which real
@@ -145,7 +146,14 @@ def random_walk_inputs(rng, B, Lp, n, spread=20, long_runs=False):
     2 collapses an insertion chain of LONG_CHAIN + 1 columns (fewer where
     the band is narrower) and pair 3 takes a run of up to LONG_D + 1 D
     rows, longer than the CUDA kernel's window of 128 columns by 32 rows
-    in either direction."""
+    in either direction.
+
+    ``overflow`` replaces the last two pairs by the walks that the event
+    compaction cannot encode (see _plant_overflow): pair n-2 emits an
+    event on two rows of every three, more than K = 512 at Lp >= 800,
+    and pair n-1 collapses an insertion chain of B columns on its first
+    row, more than the 4095 that an event holds at B 4096.  Needs n >= 16
+    (the last two pairs are then outside the edge blocks)."""
     src = rng.integers(0, 5, (Lp + 1, n, B), dtype=np.uint8)
     bits = rng.integers(0, 10, (Lp + 1, n, B, 4), dtype=np.uint8) \
         < np.array([9, 9, 6, 6], dtype=np.uint8)
@@ -172,6 +180,9 @@ def random_walk_inputs(rng, B, Lp, n, spread=20, long_runs=False):
     if long_runs:
         plen[:2] = (0, 1)
         _plant_long_runs(tbs, plen, tlen, dlo, finals, B, Lp)
+    if overflow:
+        assert n >= 16
+        _plant_overflow(tbs, plen, tlen, dlo, finals, B, Lp)
     return tbs, plen, tlen, dlo, finals
 
 
@@ -209,6 +220,28 @@ def _plant_long_runs(tbs, plen, tlen, dlo, finals, B, Lp):
     # column p - chain
     tbs[ic, 3, 10] = 3                         # source D1
     tbs[ic - d_rows:ic, 3, :] = 1 << 5         # D1 extends on every row
+
+
+def _plant_overflow(tbs, plen, tlen, dlo, finals, B, Lp):
+    """The last two pairs as full-length walks of fixed bytes.  Pair n-2
+    starts in M at the odd column p = B/2 + 1 of a band whose even
+    columns hold source D1 and odd ones source I1, no extension bit set:
+    its walk cycles an I row of one column (p to p-1), a D row back to p
+    and an M row, so it keeps in the band and makes an event on two rows
+    of every three.  Pair n-1 starts in I1 at column B-1 of a first row
+    whose I1 extension bits are all set: the chain has no stop, covers B
+    columns (n_ins = B) and leaves the band through the left edge; then M
+    rows to the end."""
+    n = plen.shape[0]
+    for k, b_final, first in ((n - 2, B // 2 + 1, 4), (n - 1, B - 1, 0)):
+        tbs[:, k, :] = 0
+        plen[k] = Lp
+        dlo[k] = tlen[k] - Lp - b_final
+        finals[k] = 9
+        finals[k, first] = 1                   # PERM M / I1
+    tbs[:, n - 2, 0::2] = 3                    # source D1
+    tbs[:, n - 2, 1::2] = 1                    # source I1
+    tbs[Lp, n - 1, :] = 1 << 3                 # I1 extends everywhere
 
 
 # SV sizes of sv_pairs: with BatchAligner's band_pad of 64 their band

@@ -5,8 +5,9 @@ earlier band_bwd.cu.
         [--out FILE.json] [--quick]
 
 The baseline source exports the earlier C entry point ``lcd_band_bwd(tbs,
-plen, tlen, dlo, finals, packed, b0, batch, B, Lp, stream)``; nvcc builds
-it into a temporary directory with the port's flags.  Shapes (B, Lp,
+plen, tlen, dlo, finals, packed, b0, [reload_count,] batch, B, Lp,
+stream)``; nvcc builds it into a temporary directory with the port's
+flags.  Shapes (B, Lp,
 batch): at B = 256 the main path's (256, 64), (256, 512), (256, 2048),
 (1024, 64), (1024, 512), and (4096, 64), (4096, 512); at B = 1024 and
 4096, (2048, 64).  Each shape walks two inputs: ``real``, the traceback
@@ -26,6 +27,19 @@ row of the longest walk (ms / max plen: the walk is a chain of rows, and
 the pairs run side by side), and the kernel's synchronous window reloads
 (in all and per walked row).  ``--quick`` checks and times nothing.
 ``--out`` writes every line with the card's name, power limit and clocks.
+
+``--events`` times the entry that ops/wfa.py:align_device launches,
+band.backward_events (the walk with its events epilogue: evs and meta,
+no packed walk), against the round it replaced: the baseline source's
+walk, then chip_smoke.old_tail (ops/wfa.py:compact_events, the score min
+and the meta stack), at the main path's five shapes and (4096, 512), B
+256, on both inputs (``real`` with band_fwd's edge_min, ``random`` with
+seeded random edge_min).  Both must give the plain version's evs and meta
+bit for bit (backward_events_plain), here and on the long-run inputs;
+each is timed in turns as above, queued (the card's time) and host
+included; the bound is chip_smoke.events_bound.  The baseline may be a
+source whose lcd_band_bwd has no reload counter argument (an earlier one)
+or has one.
 """
 
 from __future__ import annotations
@@ -50,6 +64,7 @@ import chip_smoke as cs  # noqa: E402
 MAIN_SHAPES = [(256, 64), (256, 512), (256, 2048), (1024, 64), (1024, 512)]
 SHAPES = ([(256, Lp, n) for Lp, n in MAIN_SHAPES + [(4096, 64), (4096, 512)]]
           + [(B, 2048, 64) for B in (1024, 4096)])
+EVENT_SHAPES = [(256, Lp, n) for Lp, n in MAIN_SHAPES + [(4096, 512)]]
 LONG_SHAPES = [(B, Lp, 16) for B in (256, 1024, 4096) for Lp in (33, 1000)]
 
 
@@ -63,30 +78,41 @@ def build_baseline(src: str, out_dir: str):
     if proc.returncode != 0:
         raise RuntimeError(f"baseline build failed:\n{proc.stderr}")
     fn = ctypes.CDLL(so).lcd_band_bwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
+    # the entry gained a nullable reload counter after packed and b0
+    with open(src) as f:
+        counter = "reload_count" in f.read()
+    fn.argtypes = [ctypes.c_void_p] * (8 if counter else 7) + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     log = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
            if "registers" in ln or "spill" in ln]
-    return fn, log
+
+    def call(*ptrs, batch, B, Lp, stream):
+        """ptrs: tbs, plen, tlen, dlo, finals, packed, b0."""
+        return fn(*ptrs, *((None,) if counter else ()), batch, B, Lp, stream)
+    return call, log
 
 
 def real_inputs(rng, B, Lp, n, dev):
-    """Walk inputs from the port's band_fwd on make_batch pairs."""
+    """Walk inputs from the port's band_fwd on make_batch pairs, with its
+    edge_min."""
     from longcalld_torch.ops import band
     from longcalld_torch.ops.convert import from_numpy
     arrays, _ = cs.make_batch(rng, n, Lp, B)
     a = from_numpy(arrays, dev)
-    tbs, finals, _ = band.banded_dp(*a, B, Lp, cs.X, cs.O1, cs.E1, cs.O2,
-                                    cs.E2)
-    return (tbs, a[2], a[3], a[4], finals), arrays[2]
+    tbs, finals, edge_min = band.banded_dp(*a, B, Lp, cs.X, cs.O1, cs.E1,
+                                           cs.O2, cs.E2)
+    return (tbs, a[2], a[3], a[4], finals), arrays[2], edge_min
 
 
 def random_inputs(rng, B, Lp, n, dev):
+    """random_walk_inputs with long runs, and a seeded random edge_min."""
     from longcalld_torch.ops.convert import from_numpy
     from torch_helpers import random_walk_inputs
     arrays = random_walk_inputs(rng, B, Lp, n, spread=60, long_runs=True)
-    return tuple(from_numpy(arrays, dev)), arrays[1]
+    edge_min = from_numpy((rng.integers(0, 1 << 20, n).astype(np.int32),),
+                          dev)[0]
+    return tuple(from_numpy(arrays, dev)), arrays[1], edge_min
 
 
 def main() -> int:
@@ -99,6 +125,7 @@ def main() -> int:
     ap.add_argument("--baseline", required=True)
     ap.add_argument("--out", default=None)
     ap.add_argument("--quick", action="store_true")
+    ap.add_argument("--events", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_band_bwd: no CUDA card", file=sys.stderr)
@@ -127,16 +154,29 @@ def main() -> int:
         packed = torch.empty((Lp, n), dtype=torch.int32, device=dev)
         b0 = torch.empty((n,), dtype=torch.int32, device=dev)
         err = base_fn(*(t.data_ptr() for t in a), packed.data_ptr(),
-                      b0.data_ptr(), n, B, Lp, stream)
+                      b0.data_ptr(), batch=n, B=B, Lp=Lp, stream=stream)
         kbuild.check(err, "baseline band_bwd")
         return packed, b0
 
-    def check(a, B, Lp, what):
+    def fns_of(a, e, B, Lp):
+        """The two functions timed against each other: (baseline,
+        kernel)."""
+        if args.events:
+            return (lambda: cs.old_tail(run_base(a, B, Lp), a[4], e, Lp),
+                    lambda: band.backward_events(*a, e, B, Lp))
+        return (lambda: run_base(a, B, Lp),
+                lambda: band.backward_resolve(*a, B, Lp))
+
+    def check(a, e, B, Lp, what):
         """Kernel against baseline and plain version; returns reloads."""
         reloads = torch.zeros(1, dtype=torch.int32, device=dev)
-        got = band.backward_resolve(*a, B, Lp, reloads=reloads)
-        ref = run_base(a, B, Lp)
-        plain = band.backward_resolve_plain(*a, B, Lp)[:2]
+        if args.events:
+            got = band.backward_events(*a, e, B, Lp, reloads=reloads)
+            plain = band.backward_events_plain(*a, e, B, Lp)
+        else:
+            got = band.backward_resolve(*a, B, Lp, reloads=reloads)
+            plain = band.backward_resolve_plain(*a, B, Lp)[:2]
+        ref = fns_of(a, e, B, Lp)[0]()
         torch.cuda.synchronize()
         for name, want in (("baseline", ref), ("plain version", plain)):
             if not all(torch.equal(x, y) for x, y in zip(got, want)):
@@ -147,50 +187,59 @@ def main() -> int:
 
     long_rows = []
     for B, Lp, n in LONG_SHAPES:
-        a, plen = random_inputs(rng, B, Lp, n, dev)
-        r = check(a, B, Lp, "long-run")
+        a, plen, e = random_inputs(rng, B, Lp, n, dev)
+        r = check(a, e, B, Lp, "long-run")
         long_rows.append({"B": B, "Lp": Lp, "batch": n, "reloads": r,
                           "walked_rows": int(plen.sum())})
         print(f"long runs B={B} Lp={Lp} batch={n}: bit-equal to baseline "
               f"and plain, {r} window reloads", flush=True)
 
     rows = []
-    for B, Lp, n in SHAPES:
+    for B, Lp, n in EVENT_SHAPES if args.events else SHAPES:
         for kind in ("real", "random"):
             if kind == "real":
-                a, plen = real_inputs(rng, B, Lp, n, dev)
+                a, plen, e = real_inputs(rng, B, Lp, n, dev)
             else:
-                a, plen = random_inputs(rng, B, Lp,
-                                        min(n, 64 if B == 256 else 16), dev)
+                a, plen, e = random_inputs(
+                    rng, B, Lp, min(n, 64 if B == 256 else 16), dev)
             bn = a[0].shape[1]
             walked = int(np.minimum(plen, Lp).sum())
             deepest = int(np.clip(plen, 0, Lp).max())
-            reloads = check(a, B, Lp, kind)
+            reloads = check(a, e, B, Lp, kind)
             row = {"B": B, "Lp": Lp, "batch": bn, "input": kind,
                    "main_path": B == 256 and (Lp, n) in MAIN_SHAPES,
                    "walked_rows": walked, "deepest_walk": deepest,
                    "reloads": reloads,
                    "reloads_per_walked_row": reloads / max(walked, 1)}
+            if args.events:
+                ev = band.backward_events(*a, e, B, Lp)[1][:, 3]
+                row.update(events=int(ev.clamp_min(0).sum()),
+                           unencodable=int((ev < 0).sum()))
             if not args.quick:
-                fns = {"baseline": lambda: run_base(a, B, Lp),
-                       "kernel": lambda: band.backward_resolve(*a, B, Lp)}
+                fns = dict(zip(("baseline", "kernel"), fns_of(a, e, B, Lp)))
                 est = cs.cuda_ms(fns["baseline"], 2)
-                reps = max(3, min(50, int(60 / max(est, 1e-3))))
+                # queued calls must all fit in the launch queue behind the
+                # sleep kernel: the events baseline is ~31 launches a call
+                reps = max(3, min(10 if args.events else 50,
+                                  int(60 / max(est, 1e-3))))
                 times = {k: [] for k in fns}
                 for k in ("baseline", "kernel", "kernel", "baseline"):
                     times[k].append(cs.cuda_ms(fns[k], reps, queued=True))
                 mean = {k: sum(v) / len(v) for k, v in times.items()}
-                bound, by = cs.bwd_bound(plen, Lp, bn, int_rate)
+                bound, by = (cs.events_bound if args.events
+                             else cs.bwd_bound)(plen, Lp, bn, int_rate)
                 row.update(
                     reps=reps, ms=times, mean_ms=mean, bound_ms=bound,
                     bound_by=by, speedup=mean["baseline"] / mean["kernel"],
                     us_per_row={k: v * 1e3 / max(deepest, 1)
                                 for k, v in mean.items()},
                     # the wrapper as align_device calls it, host included
-                    wrapper_ms=cs.cuda_ms(fns["kernel"], reps))
+                    wrapper_ms=cs.cuda_ms(fns["kernel"], reps),
+                    baseline_host_ms=cs.cuda_ms(fns["baseline"], reps))
             rows.append(row)
             print(json.dumps(row), flush=True)
     out = {"card": card, "clocks_sm_now_max": clocks,
+           "mode": "events" if args.events else "walk",
            "clocks_after": cs.nvidia_smi("clocks.sm,clocks.max.sm"),
            "int32_ops_per_s": int_rate, "rows": rows, "long_runs": long_rows,
            "nvcc": nvcc, "baseline_nvcc": base_log}
