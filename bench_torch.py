@@ -212,17 +212,19 @@ def _add(tot: dict, d: dict) -> None:
 def timed_pass(opt, dev, audit: dict, pool: bool) -> tuple:
     """One pass of ``opt``: memos cleared, the wall from the call to the
     card's synchronize.  Adds the pass's aligner deltas (the pool's
-    aln_* counters for a ``pool`` configuration), the parent's kernel
-    launches by shape and its device rounds to ``audit``.  Returns (wall,
-    VCF body)."""
+    aln_* counters for a ``pool`` configuration, the workers' kernel
+    launches among them), the parent's kernel launches (the EM kernel's
+    beside the band kernels') and band launches by shape, and its device
+    rounds to ``audit``.  Returns (wall, VCF body)."""
     from longcalld_torch.core.pipeline import run_call
-    from longcalld_torch.ops import band, wfa
+    from longcalld_torch.ops import band, phase_kernel, wfa
 
     totals = _pool_counters if pool else wfa.aligner_totals
     clear_memos()
     for al in wfa._ALIGNER_CACHE.values():
         al.round_log.clear()
     band.reset_launch_counts()
+    phase_kernel.reset_em_launch_counts()
     before = totals()
     buf = io.StringIO()
     _sync(dev)
@@ -232,7 +234,8 @@ def timed_pass(opt, dev, audit: dict, pool: bool) -> tuple:
     wall = time.perf_counter() - t0
     after = totals()
     _add(audit.setdefault("aligned_dp_cells", {}), _delta(after, before))
-    _add(audit.setdefault("launches", {}), band.launch_counts())
+    _add(audit.setdefault("launches", {}), {
+        **band.launch_counts(), **phase_kernel.em_launch_counts()})
     _add(audit.setdefault("launch_shapes", {}), band.launch_shapes())
     audit.setdefault("round_log", []).extend(
         e for al in wfa._ALIGNER_CACHE.values() for e in al.round_log)
@@ -293,10 +296,12 @@ def run_turns(cfgs: dict, dev, rounds: int = ROUNDS) -> dict:
     return res
 
 
-def profiled_pass(opt, dev) -> dict:
+def profiled_pass(opt, dev, every_name: bool = False) -> dict:
     """One pass of ``opt`` under torch.profiler (not timed with the
     turns): the card's busy time is the union of the intervals of its
-    device events, its share of the pass's wall the busy share."""
+    device events, its share of the pass's wall the busy share.
+    ``every_name`` adds each event name's ms and count, not only the top
+    eight names' ms."""
     import torch
     from torch.autograd import DeviceType
 
@@ -311,7 +316,7 @@ def profiled_pass(opt, dev) -> dict:
         run_call(opt, io.StringIO(), "bench_torch", device=dev)
         _sync(dev)
         wall = time.perf_counter() - t0
-    spans, by_name = [], {}
+    spans, by_name, count = [], {}, {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -321,15 +326,20 @@ def profiled_pass(opt, dev) -> dict:
         name = re.sub(r"\s*\(.*", "", e.name.replace(
             "(anonymous namespace)::", ""))
         by_name[name] = by_name.get(name, 0.0) + (t_e - t_s) / 1e3
+        count[name] = count.get(name, 0) + 1
     busy_us, end = 0.0, -1.0
     for t_s, t_e in sorted(spans):
         if t_e > end:
             busy_us += t_e - max(t_s, end)
             end = t_e
-    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
-    return {"wall_s": wall, "device_events": len(spans),
-            "busy_ms": busy_us / 1e3, "busy_share": busy_us / 1e6 / wall,
-            "busy_ms_by_name": top}
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    row = {"wall_s": wall, "device_events": len(spans),
+           "busy_ms": busy_us / 1e3, "busy_share": busy_us / 1e6 / wall,
+           "busy_ms_by_name": dict(ranked[:8])}
+    if every_name:
+        row["by_name"] = {k: {"ms": v, "events": count[k]}
+                          for k, v in ranked}
+    return row
 
 
 def full_path_pairs(rng):
@@ -748,6 +758,11 @@ def run(fa: str, bam: str, dev, rounds: int = ROUNDS,
                  "warmup_s": r["warmup_s"],
                  "aligned_dp_cells": audit["aligned_dp_cells"],
                  "launches": audit["launches"],
+                 # the parent's or, on the pool, the workers' (aln_*)
+                 "phase_em_launches_per_pass": (
+                     audit["launches"].get("phase_em", 0)
+                     + audit["aligned_dp_cells"].get("phase_em_launches", 0))
+                 / st["passes"],
                  "launch_shapes": audit["launch_shapes"]}
         for k in ("routing_min_cells", "card_mem_mib"):
             if k in r:
@@ -769,7 +784,8 @@ def run(fa: str, bam: str, dev, rounds: int = ROUNDS,
                                       "submit_s", "bytes_h2d")}
                    for e in rounds_log[:12]]}
     if dev.type == "cuda" and not all(forced["launches"].get(k, 0) > 0
-                                      for k in ("band_fwd", "band_bwd")):
+                                      for k in ("band_fwd", "band_bwd",
+                                                "phase_em")):
         raise AssertionError(f"device_forced launched {forced['launches']}")
     if cells["n_dispatch"] <= 0 or cells["cells_device"] <= 0:
         raise AssertionError(f"device_forced sent nothing to the device: "

@@ -92,12 +92,33 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      (soak_torch.audit_failures: a CUDA phasing EM in every device family,
      both kernels in every one that aligns a DP cell; the somatic scene
      aligns none), both kernels launched in the phase, and the families'
-     launch counts summing to the phase's.
+     launch counts summing to the phase's;
+  9. the phasing EM kernel (csrc/phase_em.cu, ops/phase_kernel.py:
+     phase_em) against its plain version, phase_fixpoint_plain, on the
+     card: all six outputs and n_iter bit-equal at (R, V) in
+     EM_KERNEL_SHAPES (the buckets 128-8192, the main path's (2048, 512)
+     and past the last bucket on either axis), on an ONT window (the 67%
+     rule), a window with no valid var, a noisy window that runs all 10
+     rounds and the same window capped by max_iter=2, at grids of EM_CTA_COUNTS CTAs and one an SM (the
+     EM's cooperative grid; em_ctas picks it by R x V), and under 8 threads
+     running EMs at once (equal to the serial results); each shape's
+     CUDA-event ms (queued: the card alone; and host included, the unpack's
+     wait too) beside the plain version's and the bound (em_bound); one EM
+     as run_phase_kernel runs it (the inputs' copies, the launch, one copy
+     back) under torch.profiler, in a process of its own, whose only card
+     kernel may be phase_em.
+The EM kernel's launches are audited beside the band kernels' wherever
+the one-device EM runs: phase 4's calibrated and forced runs and phase 5
+(a)'s workers launch it once for every CUDA EM run (no plain EM on CUDA),
+phase 6 holds the sharded torch EM (the mesh's) equal to it, phase 8's
+soak families each launch it.
 Every phase fails if jax or any module of the JAX package (longcalld_tpu)
 is in sys.modules, and its last line says so.
 The last lines are the card line, a JSON line of the kernels (with
-``shapes`` and ``bands`` lists per kernel; band_bwd's times and bound are
-its events entry's), and {"ok": true, "device": {...}}.
+``shapes`` and ``bands`` lists per band kernel, a ``shapes`` list of
+phase 9's windows for phase_em; band_bwd's times and bound are its events
+entry's), and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -137,6 +158,15 @@ POOL_PROCS = 8               # phase 5 workers (capped by the host's cores)
 SOAK_SEEDS = 10              # phase 8: two seeds of each soak family
 MESH_SHARDS = 4              # phase 6 mesh size
 EM_SHAPES = [(2048, 2048), (8192, 8192)]   # phase 6 (a): (R, V) buckets
+# phase 9: (R, V) of the EM kernel's checks: the buckets of
+# ops/phase_kernel.py:_bucket, the main path's (2048, 512) (phase 4's
+# forced run launches 7 of its 8 EMs there), and past the last bucket on
+# each axis
+EM_KERNEL_SHAPES = [(128, 128), (512, 512), (2048, 512), (2048, 2048),
+                    (8192, 8192), (64, 8200), (8320, 128)]
+EM_CTAS_SHAPE = (1000, 700)  # (R, V) of phase 9's CTA counts
+EM_CTA_COUNTS = (1, 2, 3, 8, 17, 64)   # and the SM count
+EM_THREADS = 8               # phase 9's concurrent EMs
 
 
 FOREIGN = ("jax", "jaxlib", "longcalld_tpu")
@@ -225,6 +255,10 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_LANES_PER_SM = 64
 FWD_OPS_PER_CELL = 36
 BWD_OPS_PER_ROW = 12
+# a cell of the EM's allele matrix adds to 9 int32 counts a round: n_agree
+# and n_conflict; the read's s1, s2, n_used, agree and conflict; its hap's
+# two profile counts
+EM_OPS_PER_CELL_ROUND = 9
 
 
 def card_int32_rate() -> float:
@@ -269,6 +303,19 @@ def events_bound(plen, Lp, n, int_rate):
     walked = int(np.asarray(plen).sum())
     nbytes = walked + 36 * n + 4 * n * event_k(Lp) + 16 * n
     return bound_ms(walked * BWD_OPS_PER_ROW, nbytes, int_rate)
+
+
+def em_bound(R, V, n_iter, int_rate):
+    """phase_em: the inputs read once (alleles R x V bytes; starts, ends,
+    haps0 9 bytes a read; cons0, the five masks and w_score 11 bytes a
+    var), the packed outputs (7V + 3R + 1 int32) written once, and
+    EM_OPS_PER_CELL_ROUND adds a cell a round.  Also the time of three
+    reads of the allele matrix a round (two sums over reads, one over
+    vars) at the same rate."""
+    nbytes = R * V + 9 * R + 11 * V + 4 * (7 * V + 3 * R + 1)
+    ms, by = bound_ms(EM_OPS_PER_CELL_ROUND * R * V * n_iter, nbytes,
+                      int_rate)
+    return ms, by, 3 * R * V * n_iter / HBM_BYTES_PER_S * 1e3
 
 
 def old_tail(pk_b0, finals, edge_min, Lp):
@@ -795,6 +842,7 @@ def run_main_path(fa, bam):
         # launch counts from here on are the main path's own
         band.reset_launch_counts()
         phase_kernel.reset_cuda_calls()
+        phase_kernel.reset_em_launch_counts()
         out = io.StringIO()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -805,8 +853,10 @@ def run_main_path(fa, bam):
         al = wfa.get_aligner(opt, torch.device("cuda:0"))
         reports[name] = {
             "wall_s": wall, "records": n_rec,
-            "launches": band.launch_counts(),
+            "launches": {**band.launch_counts(),
+                         **phase_kernel.em_launch_counts()},
             "launch_shapes": band.launch_shapes(),
+            "em_launch_shapes": phase_kernel.em_launch_shapes(),
             "phase_cuda_calls": phase_kernel.cuda_calls(),
             "device_min_cells": al.device_min_cells if kw["use_device"]
             else None,
@@ -872,6 +922,7 @@ def run_pool(fa, bam, hp):
             # the parent's own launch counts: they must stay 0
             band.reset_launch_counts()
             phase_kernel.reset_cuda_calls()
+            phase_kernel.reset_em_launch_counts()
             out = io.StringIO()
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
@@ -898,11 +949,12 @@ def run_pool(fa, bam, hp):
             reports[name] = {
                 "wall_s": wall, "records": n_rec, "host_procs": procs,
                 "n_threads": opt.n_threads,
-                "parent_launches": band.launch_counts(),
+                "parent_launches": {**band.launch_counts(),
+                                    **phase_kernel.em_launch_counts()},
                 "parent_phase_cuda_calls": phase_kernel.cuda_calls(),
                 "worker_launches": {
                     k: snap.get(f"aln_{k}_launches", 0)
-                    for k in ("band_fwd", "band_bwd")},
+                    for k in ("band_fwd", "band_bwd", "phase_em")},
                 "worker_phase_cuda_calls": snap.get("aln_phase_cuda_calls",
                                                     0),
                 **cells,
@@ -996,13 +1048,15 @@ def run_mesh_call(fa, bam, mesh):
     # launch counts from here on are the mesh run's own
     band.reset_launch_counts()
     phase_kernel.reset_cuda_calls()
+    phase_kernel.reset_em_launch_counts()
     out = io.StringIO()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     n_rec = run_call(opt, out, "chip_smoke", device=mesh[0], mesh=mesh)
     torch.cuda.synchronize()
     report = {"wall_s": time.perf_counter() - t0, "records": n_rec,
-              "mesh": mesh, "launches": band.launch_counts(),
+              "mesh": mesh, "launches": {
+                  **band.launch_counts(), **phase_kernel.em_launch_counts()},
               "phase_cuda_calls": phase_kernel.cuda_calls(),
               "phase_sharded_calls": phase_kernel.sharded_calls()}
     print(f"mesh call: {json.dumps(report)}", flush=True)
@@ -1020,11 +1074,12 @@ def run_soak():
     # launch counts from here on are the soak's own
     band.reset_launch_counts()
     phase_kernel.reset_cuda_calls()
+    phase_kernel.reset_em_launch_counts()
     with tempfile.TemporaryDirectory() as d:
         summary = soak_torch.soak(
             SOAK_SEEDS, soak_torch.seeded_base(d), torch.device("cuda:0"),
             log=lambda s: print(f"soak {s}", flush=True))
-    launches = band.launch_counts()
+    launches = {**band.launch_counts(), **phase_kernel.em_launch_counts()}
     if summary["counts"]["FAIL"]:
         raise AssertionError(f"soak FAIL: {summary['non_pass']}")
     if summary["audit_failures"]:
@@ -1032,13 +1087,194 @@ def run_soak():
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched in the soak")
-        if n != sum(r["launches"][name]
+        if n != sum(r["phase_em_launches"] if name == "phase_em"
+                    else r["launches"][name]
                     for r in summary["families"].values()):
             raise AssertionError(f"the soak families' {name} launches do "
                                  f"not sum to the phase's {n}")
     for fam, r in summary["families"].items():
         print(f"soak [{fam}]: {json.dumps(r)}", flush=True)
     return summary, launches
+
+
+def em_err(a, b):
+    """Max |difference| over two PhaseKernelOut's tensors and n_iter."""
+    err = abs(int(a.n_iter) - int(b.n_iter))
+    for name in a._fields[:-1]:
+        x, y = getattr(a, name), getattr(b, name)
+        if x.shape != y.shape:
+            raise AssertionError(f"EM field {name}: shape {tuple(x.shape)} "
+                                 f"against {tuple(y.shape)}")
+        err = max(err, int((x.cpu().long() - y.cpu().long()).abs().max()))
+    return err
+
+
+def em_case(case, arrays, int_rate, max_iter=10):
+    """Phase 9: the EM kernel against phase_fixpoint_plain on one window
+    on cuda:0, bit-equal or raise; returns the row with both times and the
+    bound."""
+    import torch
+
+    from longcalld_torch.ops import phase_kernel as pk
+    from longcalld_torch.ops.convert import from_numpy
+
+    args = from_numpy(arrays, torch.device("cuda:0"))
+    R, V = args[0].shape
+    got = pk.phase_fixpoint(*args, max_iter=max_iter)
+    torch.cuda.synchronize()
+    plain = pk.phase_fixpoint_plain(*args, max_iter=max_iter)
+    err = em_err(got, plain)
+    if err:
+        raise AssertionError(f"phase_em differs from its plain version on "
+                             f"{case} at (R, V) = ({R}, {V}): max |diff| "
+                             f"{err}")
+    reps = max(3, min(50, (1 << 24) // (R * V)))
+    bound, by, bytes_3x = em_bound(R, V, got.n_iter, int_rate)
+    row = {"case": case, "R": R, "V": V, "max_iter": max_iter,
+           "n_iter": got.n_iter,
+           "ctas": pk.em_ctas(R, V, pk.sm_count(args[0].device)),
+           "ms": cuda_ms(lambda: pk.phase_em(*args, max_iter=max_iter),
+                         reps, queued=True),
+           "host_ms": cuda_ms(
+               lambda: pk.phase_fixpoint(*args, max_iter=max_iter), reps),
+           # the torch form after its checking call (warm)
+           "plain_ms": cuda_ms(
+               lambda: pk.phase_fixpoint_plain(*args, max_iter=max_iter), 3),
+           "bound_ms": bound, "bound_by": by,
+           "bytes_3x_ms": bytes_3x, "max_abs_err": err}
+    print(f"phase_em [{case}] (R, V) = ({R}, {V}), {got.n_iter} rounds, "
+          f"{row['ctas']} CTAs: {row['ms']:.4f} ms (host included "
+          f"{row['host_ms']:.4f} ms; bound {bound:.4f} ms, {by}; three "
+          f"reads of A a round {bytes_3x:.4f} ms; plain "
+          f"{row['plain_ms']:.3f} ms),"
+          f" bit-equal", flush=True)
+    return row
+
+
+def check_em(int_rate):
+    """Phase 9 (see the module docstring); returns (rows, the CTA counts
+    checked, the threads' EM runs)."""
+    import threading
+
+    import torch
+
+    from longcalld_torch.ops import phase_kernel as pk
+    from longcalld_torch.ops.convert import from_numpy
+    from torch_helpers import phase_window
+
+    rows = [em_case("shape", phase_window(R + V, R=R, V=V, noise=0.05),
+                    int_rate) for R, V in EM_KERNEL_SHAPES]
+    rows.append(em_case("ont", phase_window(
+        11, R=2048, V=2048, noise=0.05, hp_on=True), int_rate))
+    rows.append(em_case("no_valid", phase_window(
+        12, R=512, V=512, no_valid=True), int_rate))
+    noisy = phase_window(1, R=2048, V=2048, noise=0.3)
+    rows.append(em_case("noisy", noisy, int_rate))
+    rows.append(em_case("capped", noisy, int_rate, max_iter=2))
+    if rows[-1]["n_iter"] != 2 or rows[-2]["n_iter"] <= 2:
+        raise AssertionError(f"the noisy window ran {rows[-2]['n_iter']} "
+                             f"rounds, {rows[-1]['n_iter']} capped at 2")
+
+    args = from_numpy(phase_window(7, R=EM_CTAS_SHAPE[0],
+                                   V=EM_CTAS_SHAPE[1], noise=0.1),
+                      torch.device("cuda:0"))
+    R, V = args[0].shape
+    ref = pk.phase_fixpoint_plain(*args)
+    counts = [*EM_CTA_COUNTS, pk.sm_count(args[0].device)]
+    for ctas in counts:
+        got = pk.unpack_phase_out(pk.phase_em(*args, ctas=ctas), R, V)
+        if em_err(got, ref):
+            raise AssertionError(f"phase_em with {ctas} CTAs differs from "
+                                 f"its plain version at ({R}, {V})")
+    print(f"phase_em at (R, V) = ({R}, {V}): grids of {counts} CTAs "
+          f"bit-equal to the plain version", flush=True)
+
+    wins = [from_numpy(phase_window(40 + k, R=n, V=n, noise=0.05),
+                       torch.device("cuda:0"))
+            for k, n in enumerate([512, 2048] * (EM_THREADS // 2))]
+    serial = [pk.phase_fixpoint(*w) for w in wins]
+    errors, runs = [], []
+
+    def work(k):
+        try:
+            for _ in range(3):
+                if em_err(pk.phase_fixpoint(*wins[k]), serial[k]):
+                    errors.append(f"window {k} differs")
+                runs.append(k)
+        except Exception as e:          # reported below, in the main thread
+            errors.append(f"window {k}: {e!r}")
+    threads = [threading.Thread(target=work, args=(k,))
+               for k in range(EM_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    if errors or len(runs) != 3 * EM_THREADS:
+        raise AssertionError(f"phase_em under {EM_THREADS} threads: "
+                             f"{errors}, {len(runs)} runs")
+    print(f"phase_em under {EM_THREADS} threads: {len(runs)} EMs equal to "
+          f"the serial results", flush=True)
+    return rows, counts, len(runs)
+
+
+def profile_em(R=2048, V=2048):
+    """Phase 9: one EM as run_phase_kernel runs it (the inputs copied to
+    the card, one launch, the packed outputs copied back) under
+    torch.profiler: one launch, and phase_em the only card kernel beside
+    copies and fills.  Returns the card's kernel names with their ms."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from longcalld_torch.ops import phase_kernel as pk
+    from longcalld_torch.ops.convert import from_numpy
+    from torch_helpers import phase_window
+
+    arrays = phase_window(3, R=R, V=V, noise=0.05)
+    dev = torch.device("cuda:0")
+    pk.phase_em(*from_numpy(arrays, dev)).cpu()              # warm
+    pk.reset_em_launch_counts()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        pk.phase_em(*from_numpy(arrays, dev)).cpu()
+        torch.cuda.synchronize()
+    launches = pk.em_launch_counts()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = re.sub(r"\s*\(.*", "", e.name.replace(
+            "(anonymous namespace)::", "")).removeprefix("void ")
+        by_name[name] = by_name.get(name, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3
+    other = [k for k in by_name if "phase_em" not in k and not re.search(
+        r"memcpy|memset|fill", k, re.IGNORECASE)]
+    if (other or launches != {"phase_em": 1}
+            or not any("phase_em" in k for k in by_name)):
+        raise AssertionError(f"one EM at (R, V) = ({R}, {V}) ran kernels "
+                             f"{by_name}, launches {launches}")
+    print(f"one EM profiled at (R, V) = ({R}, {V}): card kernels "
+          f"{json.dumps(by_name)}, launches {launches}", flush=True)
+    return by_name
+
+
+def profile_em_child():
+    """profile_em in a process of its own: on the H100 a second
+    torch.profiler session in one process (phase 4 opens the first)
+    recorded no device events.  Returns the child's result."""
+    code = (f"import json, sys; sys.path[:0] = [{ROOT!r}, "
+            f"{os.path.join(ROOT, 'tests')!r}]; import chip_smoke; "
+            "by_name = chip_smoke.profile_em(); print(chip_smoke.guard('9, "
+            "the profiled EM')); print(json.dumps(by_name))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600)
+    lines = out.stdout.splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    if out.returncode:
+        raise AssertionError(f"the profiled EM failed: {out.stderr[-2000:]}")
+    return json.loads(lines[-1])
 
 
 def check_vcf(body, fa):
@@ -1152,6 +1388,34 @@ def kernel_entries(krows, brows, bench, arows, path_launches, path_shapes,
     return kernels
 
 
+def em_entry(erows, path_launches, prof, cta_counts, thread_runs,
+             path_shapes):
+    """phase_em's entry of the ``kernels`` JSON list: its launches on each
+    path and the main path's by "R,V" (``path_shapes``), the time and
+    bound at phase 9's largest bucket (8192, 8192) (no PyTorch call
+    computes the EM, so ``library_ms`` is null), every phase 9 window's
+    row, and the kernel's ms in the profiled EM."""
+    big = max((r for r in erows if r["case"] == "shape"),
+              key=lambda r: r["R"] * r["V"])
+    return {
+        "name": "phase_em", "route": "cuda",
+        "source": "longcalld_torch/csrc/phase_em.cu",
+        "replaces": "longcalld_tpu/ops/phase_kernel.py:83",
+        "replaces_kind": "XLA program (_phase_fixpoint, jax.jit at :259)",
+        **{k: v["phase_em"] for k, v in path_launches.items()},
+        "launch_shapes": path_shapes,
+        "max_abs_err": max(r["max_abs_err"] for r in erows),
+        "ms": big["ms"], "plain_ms": big["plain_ms"],
+        "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
+        "library_ms": None,
+        "shape": {"R": big["R"], "V": big["V"], "n_iter": big["n_iter"],
+                  "ctas": big["ctas"]},
+        "host_ms": big["host_ms"], "bytes_3x_ms": big["bytes_3x_ms"],
+        "profiled_em_ms": sum(v for k, v in prof.items() if "phase_em" in k),
+        "cta_counts": cta_counts, "thread_runs": thread_runs,
+        "shapes": erows}
+
+
 def main() -> int:
     import torch
     t_smoke = time.perf_counter()
@@ -1210,7 +1474,13 @@ def main() -> int:
                                  "run")
     if forced["phase_cuda_calls"] <= 0:
         raise AssertionError("phasing EM never ran on CUDA in the forced run")
-    if reports["host"]["launches"] != {"band_fwd": 0, "band_bwd": 0}:
+    for name in ("calibrated", "forced"):
+        rep = reports[name]
+        if rep["phase_cuda_calls"] != rep["launches"]["phase_em"]:
+            raise AssertionError(f"the {name} run ran {rep['phase_cuda_calls']}"
+                                 f" CUDA EMs and {rep['launches']['phase_em']}"
+                                 " EM kernel launches")
+    if any(reports["host"]["launches"].values()):
         raise AssertionError("host-only run launched a kernel")
     print(f"VCF bodies byte-equal across calibrated/forced/host: "
           f"{len(bodies['host'])} records", flush=True)
@@ -1247,7 +1517,7 @@ def main() -> int:
     pdev, phost = preports["device_workers"], preports["host_workers"]
     pseq = preports["in_process"]
     for name, rep in preports.items():
-        if (rep["parent_launches"] != {"band_fwd": 0, "band_bwd": 0}
+        if (any(rep["parent_launches"].values())
                 or rep["parent_phase_cuda_calls"]):
             raise AssertionError(f"the parent launched a kernel in the "
                                  f"{name} run")
@@ -1257,6 +1527,11 @@ def main() -> int:
                                  "worker")
     if pdev["worker_phase_cuda_calls"] <= 0:
         raise AssertionError("phasing EM never ran on CUDA in a worker")
+    if pdev["worker_phase_cuda_calls"] != pdev["worker_launches"]["phase_em"]:
+        raise AssertionError(f"the device workers ran "
+                             f"{pdev['worker_phase_cuda_calls']} CUDA EMs and "
+                             f"{pdev['worker_launches']['phase_em']} EM kernel"
+                             " launches")
     busy = [w for w, v in pdev["cells_device_by_worker"].items() if v > 0]
     if len(busy) < 2:
         raise AssertionError(f"device DP cells in fewer than 2 workers: "
@@ -1284,8 +1559,8 @@ def main() -> int:
     if mbody != bodies["host"]:
         raise AssertionError("VCF body of the mesh run differs from the "
                              "host-only run")
-    for k, v in mrep["launches"].items():
-        if v <= 0:
+    for k in ("band_fwd", "band_bwd"):
+        if mrep["launches"][k] <= 0:
             raise AssertionError(f"kernel {k} never launched in the mesh run")
     if mrep["phase_sharded_calls"] <= 0 or mrep["phase_cuda_calls"] <= 0:
         raise AssertionError("the sharded EM never ran on CUDA in the mesh "
@@ -1319,12 +1594,24 @@ def main() -> int:
           flush=True)
     print(guard("8"), flush=True)
 
-    kernels = kernel_entries(krows, brows, bench, arows, {
-        "launches": forced["launches"],
-        "procs_launches": pdev["worker_launches"],
-        "mesh_launches": mrep["launches"],
-        "soak_launches": soak_launches}, forced["launch_shapes"], prof)
-    print(f"chip_smoke: phases 1-8 took {time.perf_counter() - t_smoke:.1f} s",
+    t9 = time.perf_counter()
+    erows, em_counts, em_thread_runs = check_em(card_int32_rate())
+    em_prof = profile_em_child()
+    print(f"phase_em: bit-equal at {len(erows)} windows, "
+          f"{len(em_counts)} grid sizes and {em_thread_runs} EMs under "
+          f"{EM_THREADS} threads; phase 9 took "
+          f"{time.perf_counter() - t9:.1f} s", flush=True)
+    print(guard("9"), flush=True)
+
+    path_launches = {"launches": forced["launches"],
+                     "procs_launches": pdev["worker_launches"],
+                     "mesh_launches": mrep["launches"],
+                     "soak_launches": soak_launches}
+    kernels = kernel_entries(krows, brows, bench, arows, path_launches,
+                             forced["launch_shapes"], prof)
+    kernels.append(em_entry(erows, path_launches, em_prof, em_counts,
+                            em_thread_runs, forced["em_launch_shapes"]))
+    print(f"chip_smoke: phases 1-9 took {time.perf_counter() - t_smoke:.1f} s",
           flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))

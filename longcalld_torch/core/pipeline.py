@@ -420,13 +420,15 @@ def _worker_handles(opt):
 
 
 def _worker_totals() -> dict:
-    """This process's aligner counters plus the kernel launch counts and
-    the phasing EM's CUDA and sharded calls: a range's delta of these
-    proves, in the parent, that the kernels ran inside the worker."""
+    """This process's aligner counters plus the kernel launch counts (the
+    band kernels' and the EM kernel's) and the phasing EM's CUDA and
+    sharded calls: a range's delta of these proves, in the parent, that
+    the kernels ran inside the worker."""
     from longcalld_torch.ops import band, phase_kernel
     from longcalld_torch.ops.wfa import aligner_totals
     tot = aligner_totals()
-    for name, n in band.launch_counts().items():
+    for name, n in {**band.launch_counts(),
+                    **phase_kernel.em_launch_counts()}.items():
         tot[f"{name}_launches"] = n
     tot["phase_cuda_calls"] = phase_kernel.cuda_calls()
     tot["phase_sharded_calls"] = phase_kernel.sharded_calls()

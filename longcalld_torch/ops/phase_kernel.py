@@ -1,21 +1,27 @@
 """Phasing fixpoint EM on the device: the port of
 longcalld_tpu/ops/phase_kernel.py (_phase_fixpoint :83-256,
-sharded_phase_fixpoint :279-301, run_phase_kernel :317-418).  It is
-PyTorch code (the JAX forms are XLA programs, not Pallas kernels).
-Outputs are bit-equal.
+sharded_phase_fixpoint :279-301, run_phase_kernel :317-418).  The JAX
+forms are XLA programs, not Pallas kernels.  Outputs are bit-equal.
 
-* One EM serves one device and a mesh: the reads axis is split into
-  contiguous shards (``_ReadShard``), each on its own device, and every
-  reduction over reads goes through ``rsum`` (the shards' partial sums
-  added on the lead device, the JAX form's psum).  Var-axis state is
+* On one CUDA device the EM is one launch of a hand-written kernel
+  (csrc/phase_em.cu, built by utils/kbuild.py): ``phase_em`` returns its
+  outputs packed in one int32 buffer, so a window's EM is one launch and
+  one host wait (``run_phase_kernel`` copies the buffer once), as the JAX
+  form is one jit dispatch.  A CUDA tensor never falls back to the torch
+  form: the wrapper launches the kernel or raises.
+* The torch form (``phase_fixpoint_plain``) is the plain version: CPU
+  tensors, the tests, the yardstick on the card, and the mesh.  One
+  implementation serves one device and a mesh: the reads axis is split
+  into contiguous shards (``_ReadShard``), each on its own device, and
+  every reduction over reads goes through ``rsum`` (the shards' partial
+  sums added on the lead device, the JAX form's psum).  Var-axis state is
   computed once on the lead device and copied to the shards.
-  ``phase_fixpoint`` is the one-shard case, ``sharded_phase_fixpoint`` the
-  mesh form.
-* The masked dots run in float32 and every reduced quantity is a count
-  below 2^24 (phase_kernel.py:25-28), so each partial sum and each sum of
-  partials is exact in any order, in int32 and in fp32: the sharded EM is
-  bit-equal to the one-device EM.  On CUDA that needs full fp32 matmuls:
-  the EM raises if TF32 is enabled.
+* The torch form's masked dots run in float32 and every reduced quantity
+  is a count below 2^24 (phase_kernel.py:25-28), so each partial sum and
+  each sum of partials is exact in any order, in int32 and in fp32: the
+  sharded EM is bit-equal to the one-device EM.  On CUDA that needs full
+  fp32 matmuls: the torch form raises if TF32 is enabled.  The kernel sums
+  in int32 and has no such hazard.
 * The serial phase-set scan over variants (phase_kernel.py:149-164, up to
   8192 steps) is two prefix operations: a cummax for the segment start and
   a cumsum parity for the flip state, which is never reset at a new
@@ -23,18 +29,22 @@ Outputs are bit-equal.
 * The 10-round counted trip with select-masked updates becomes a loop
   that stops once nothing changed, which gives the same outputs and n_iter.
   The stop is decided from replicated values, so every shard stops in the
-  same round.
+  same round; the kernel decides it on the card.
 """
 
 from __future__ import annotations
 
+import collections
+import itertools
 import threading
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from longcalld_torch.ops.band import sm_count
 from longcalld_torch.ops.convert import from_numpy
+from longcalld_torch.utils import kbuild
 from longcalld_torch.utils.device import resolve_device
 
 
@@ -52,10 +62,13 @@ class PhaseKernelOut(NamedTuple):
 _count_lock = threading.Lock()
 _cuda_calls = 0
 _sharded_calls = 0
+_em_launches = {"phase_em": 0}
+_em_shapes = collections.Counter()     # launches by (R, V)
 
 
 def cuda_calls() -> int:
-    """How many EM runs had their lead device on CUDA."""
+    """How many EM runs had their lead device on CUDA (kernel launches and
+    torch-form runs alike)."""
     with _count_lock:
         return _cuda_calls
 
@@ -72,6 +85,30 @@ def reset_cuda_calls() -> None:
     with _count_lock:
         _cuda_calls = 0
         _sharded_calls = 0
+
+
+def em_launch_counts() -> dict:
+    """{"phase_em": launches of the EM kernel}."""
+    with _count_lock:
+        return dict(_em_launches)
+
+
+def em_launch_shapes() -> dict:
+    """{"R,V": launches of the EM kernel} since the last reset."""
+    with _count_lock:
+        return {f"{r},{v}": n for (r, v), n in sorted(_em_shapes.items())}
+
+
+def reset_em_launch_counts() -> None:
+    with _count_lock:
+        _em_launches["phase_em"] = 0
+        _em_shapes.clear()
+
+
+def _count_cuda_call() -> None:
+    global _cuda_calls
+    with _count_lock:
+        _cuda_calls += 1
 
 
 def _complement_fill(c1, c2, mask):
@@ -196,18 +233,16 @@ def _fixpoint(shards, cons0, scoreable, w_score, clean_snp, valid, hp_het,
     """The EM over ``shards``, a list of (alleles, starts, ends, haps0)
     blocks of consecutive reads, each on its own device; the var-axis
     arguments lie on the lead device, the first block's."""
-    global _cuda_calls
     devs = [s[0].device for s in shards]
     if any(d.type == "cuda" for d in devs):
         if torch.backends.cuda.matmul.allow_tf32:
-            raise RuntimeError("phase_fixpoint needs full fp32 matmuls: "
-                               "torch.backends.cuda.matmul.allow_tf32 is "
-                               "True (utils.device.resolve_device turns it "
-                               "off)")
+            raise RuntimeError("phase_fixpoint_plain needs full fp32 "
+                               "matmuls: torch.backends.cuda.matmul."
+                               "allow_tf32 is True (utils.device."
+                               "resolve_device turns it off)")
     lead = devs[0]
     if lead.type == "cuda":
-        with _count_lock:
-            _cuda_calls += 1
+        _count_cuda_call()
     f32, i32 = torch.float32, torch.int32
     V = valid.shape[0]
 
@@ -279,13 +314,137 @@ def _fixpoint(shards, cons0, scoreable, w_score, clean_snp, valid, hp_het,
         n_iter=n_iter)
 
 
+def phase_fixpoint_plain(alleles, starts, ends, cons0, haps0, scoreable,
+                         w_score, clean_snp, valid, hp_het, hp_ont,
+                         max_iter: int = 10) -> PhaseKernelOut:
+    """The torch form of phase_fixpoint, on the tensors' device."""
+    return _fixpoint([(alleles, starts, ends, haps0)], cons0, scoreable,
+                     w_score, clean_snp, valid, hp_het, hp_ont, max_iter)
+
+
 def phase_fixpoint(alleles, starts, ends, cons0, haps0, scoreable, w_score,
                    clean_snp, valid, hp_het, hp_ont,
                    max_iter: int = 10) -> PhaseKernelOut:
     """Fixpoint phasing iterations (phase_kernel.py:_phase_fixpoint); the
-    arguments are its arguments, as tensors on one device."""
-    return _fixpoint([(alleles, starts, ends, haps0)], cons0, scoreable,
-                     w_score, clean_snp, valid, hp_het, hp_ont, max_iter)
+    arguments are its arguments, as tensors on one device: the plain
+    version for CPU tensors, else the EM kernel (``phase_em``)."""
+    if alleles.device.type == "cpu":
+        return phase_fixpoint_plain(alleles, starts, ends, cons0, haps0,
+                                    scoreable, w_score, clean_snp, valid,
+                                    hp_het, hp_ont, max_iter)
+    return unpack_phase_out(phase_em(
+        alleles, starts, ends, cons0, haps0, scoreable, w_score, clean_snp,
+        valid, hp_het, hp_ont, max_iter), *alleles.shape)
+
+
+# ---------------- the EM kernel (csrc/phase_em.cu) ----------------
+
+EM_CELLS_PER_CTA = 1 << 16    # (read, var) cells a CTA of the grid
+
+
+def em_ctas(R: int, V: int, sms: int) -> int:
+    """The CTAs of phase_em's grid at (R, V) on a card of ``sms`` SMs: one
+    per EM_CELLS_PER_CTA cells of the allele matrix, at most one an SM (a
+    cooperative launch: all resident at once)."""
+    return max(1, min(sms, -(-R * V // EM_CELLS_PER_CTA)))
+
+
+def packed_size(R: int, V: int) -> int:
+    """int32 words of the packed outputs: cons 2V, haps R, ps_start V,
+    agree R, conflict R, profile 4V, n_iter 1."""
+    return 7 * V + 3 * R + 1
+
+
+def pack_phase_out(out: PhaseKernelOut) -> torch.Tensor:
+    """The outputs in phase_em's packed int32 layout, on their device."""
+    i32 = torch.int32
+    ps = out.ps_start
+    return torch.cat([out.cons.to(i32).flatten(), out.haps.to(i32), ps,
+                      out.agree, out.conflict, out.profile.flatten(),
+                      torch.tensor([out.n_iter], dtype=i32,
+                                   device=ps.device)])
+
+
+def unpack_phase_out(buf: torch.Tensor, R: int, V: int) -> PhaseKernelOut:
+    """PhaseKernelOut of a packed buffer (views of it for the int32
+    fields); reading n_iter waits for a buffer on a card."""
+    if tuple(buf.shape) != (packed_size(R, V),):
+        raise ValueError(f"packed EM outputs of shape {tuple(buf.shape)}, "
+                         f"expected ({packed_size(R, V)},) at R={R} V={V}")
+    cuts = list(itertools.accumulate((0, 2 * V, R, V, R, R, 4 * V)))
+    cons, haps, ps, agree, conflict, prof = (
+        buf[a:b] for a, b in zip(cuts[:-1], cuts[1:]))
+    return PhaseKernelOut(
+        cons=cons.view(2, V).to(torch.int8), haps=haps.to(torch.int8),
+        ps_start=ps, agree=agree, conflict=conflict,
+        profile=prof.view(2, V, 2), n_iter=int(buf[-1]))
+
+
+def _check_em_arg(name, t, dtype, shape) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise ValueError(f"{name} must be a tensor")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def phase_em(alleles, starts, ends, cons0, haps0, scoreable, w_score,
+             clean_snp, valid, hp_het, hp_ont, max_iter: int = 10,
+             ctas=None) -> torch.Tensor:
+    """The EM kernel: phase_fixpoint's outputs in one packed int32 buffer
+    (``unpack_phase_out``) on the tensors' CUDA device, from one launch on
+    the current stream.  ``ctas`` (1 to the SM count) overrides em_ctas.
+    Raises ValueError, before the kernel library is loaded, for a wrong
+    dtype, shape or layout, a tensor off that one CUDA device, or R or V
+    of 0."""
+    if alleles.dim() != 2:
+        raise ValueError(f"alleles must be (R, V), got {tuple(alleles.shape)}")
+    R, V = alleles.shape
+    b, i8, i32 = torch.bool, torch.int8, torch.int32
+    args = (("alleles", alleles, i8, (R, V)), ("starts", starts, i32, (R,)),
+            ("ends", ends, i32, (R,)), ("cons0", cons0, i8, (2, V)),
+            ("haps0", haps0, i8, (R,)), ("scoreable", scoreable, b, (V,)),
+            ("w_score", w_score, i32, (V,)), ("clean_snp", clean_snp, b, (V,)),
+            ("valid", valid, b, (V,)), ("hp_het", hp_het, b, (V,)),
+            ("hp_ont", hp_ont, b, (V,)))
+    for name, t, dtype, shape in args:
+        _check_em_arg(name, t, dtype, shape)
+    dev = alleles.device
+    if dev.type != "cuda":
+        raise ValueError(f"phase_em runs on a CUDA device, got {dev} (the "
+                         "plain version, phase_fixpoint_plain, takes CPU "
+                         "tensors)")
+    for name, t, _, _ in args:
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+    if R < 1 or V < 1 or max_iter < 0:
+        raise ValueError(f"phase_em needs R, V >= 1 and max_iter >= 0, got "
+                         f"R={R} V={V} max_iter={max_iter}")
+    lib = kbuild.load()
+    sms = sm_count(dev)
+    ctas = em_ctas(R, V, sms) if ctas is None else int(ctas)
+    if not 1 <= ctas <= sms:
+        raise ValueError(f"phase_em takes 1-{sms} CTAs, got {ctas}")
+    out = torch.empty(packed_size(R, V), dtype=i32, device=dev)
+    # the grid barrier's 2 words, 7 V-long vectors, the first valid var and
+    # a changed flag a round (csrc/phase_em.cu:Scratch)
+    scratch = torch.empty(2 + 7 * V + 1 + max(max_iter, 1), dtype=i32,
+                          device=dev)
+    with torch.cuda.device(dev):
+        err = lib.lcd_phase_em(
+            *(t.data_ptr() for _, t, _, _ in args), out.data_ptr(),
+            scratch.data_ptr(), R, V, max_iter, ctas,
+            torch.cuda.current_stream(dev).cuda_stream)
+    kbuild.check(err, "phase_em")
+    with _count_lock:
+        _em_launches["phase_em"] += 1
+        _em_shapes[(R, V)] += 1
+    _count_cuda_call()
+    return out
 
 
 def shard_reads(devices, alleles, starts, ends, haps0):
@@ -342,7 +501,8 @@ def run_phase_kernel(opt, chunk, target_cate: int,
                      valid_idx: np.ndarray) -> bool:
     """phase_kernel.py:run_phase_kernel: build padded inputs from the
     post-sweep chunk, run the EM on the chunk's ``_device`` (default
-    cuda:0) or, with ``opt.mesh_devices > 1``, over the chunk's ``_mesh``
+    cuda:0; the EM kernel on CUDA, the plain version on the CPU) or, with
+    ``opt.mesh_devices > 1``, over the chunk's ``_mesh``
     (default ``make_mesh(mesh_devices, _device)``) with R padded to a
     multiple of the mesh size, and write results back.  Returns False
     (caller runs the host loop) when the window shape is degenerate."""
@@ -403,17 +563,22 @@ def run_phase_kernel(opt, chunk, target_cate: int,
 
     arrays = (alleles, starts, ends, cons0, haps0, scoreable, w_score,
               clean_snp, valid_mask, hp_het, hp_ont)
-    if mesh is None:
-        out = phase_fixpoint(*from_numpy(arrays, dev))
-    else:
+    if mesh is not None:
         # host tensors: each read block is copied straight to its device
-        out = sharded_phase_fixpoint(mesh)(*from_numpy(arrays, "cpu"))
-    cons = out.cons.cpu().numpy()
-    haps = out.haps.cpu().numpy()
-    ps_start = out.ps_start.cpu().numpy()[:n_vars]
-    agree = out.agree.cpu().numpy()
-    conflict = out.conflict.cpu().numpy()
-    profile = out.profile.cpu().numpy()
+        buf = pack_phase_out(sharded_phase_fixpoint(mesh)(
+            *from_numpy(arrays, "cpu")))
+    elif dev.type == "cuda":
+        buf = phase_em(*from_numpy(arrays, dev))
+    else:
+        buf = pack_phase_out(phase_fixpoint_plain(*from_numpy(arrays, dev)))
+    # one device-to-host copy: the EM's one host wait
+    out = unpack_phase_out(buf.cpu(), R, V)
+    cons = out.cons.numpy()
+    haps = out.haps.numpy()
+    ps_start = out.ps_start.numpy()[:n_vars]
+    agree = out.agree.numpy()
+    conflict = out.conflict.numpy()
+    profile = out.profile.numpy()
 
     cand.hap_cons_alle[:, 1] = cons[0, :n_vars]
     cand.hap_cons_alle[:, 2] = cons[1, :n_vars]

@@ -41,6 +41,9 @@ SIGNATURES = {
     # tbs, plen, tlen, dlo, finals, edge_min, evs, meta, reload_count
     # (nullable), batch, B, Lp, K, stream
     "lcd_band_bwd_events": [_P] * 9 + [_I] * 4 + [_P],
+    # alleles, starts, ends, cons0, haps0, scoreable, w_score, clean_snp,
+    # valid, hp_het, hp_ont, out, scratch, R, V, max_iter, ctas, stream
+    "lcd_phase_em": [_P] * 13 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

@@ -486,6 +486,7 @@ FAMILIES = {
 # ---------------- the run ----------------
 
 _KERNEL_FILES = (os.path.join("ops", "band.py"),
+                 os.path.join("ops", "phase_kernel.py"),
                  os.path.join("utils", "kbuild.py"))
 _CUDA_WORDS = re.compile(r"\bCUDA\b|cudaError|CUBLAS|cuDNN")
 
@@ -518,6 +519,7 @@ def _audit() -> dict:
     return {"launches": band.launch_counts(),
             "launch_shapes": band.launch_shapes(),
             "phase_cuda_calls": phase_kernel.cuda_calls(),
+            "phase_em_launches": phase_kernel.em_launch_counts()["phase_em"],
             "cells_device": tot["cells_device"],
             "cells_host": tot["cells_host"],
             "cells_host_device_calls": sum(
@@ -526,8 +528,8 @@ def _audit() -> dict:
 
 
 def _add_audit(acc: dict, before: dict, after: dict) -> None:
-    for k in ("phase_cuda_calls", "cells_device", "cells_host",
-              "cells_host_device_calls"):
+    for k in ("phase_cuda_calls", "phase_em_launches", "cells_device",
+              "cells_host", "cells_host_device_calls"):
         acc[k] += after[k] - before[k]
     for name, n in after["launches"].items():
         acc["launches"][name] += n - before["launches"][name]
@@ -546,15 +548,17 @@ def _family_record() -> dict:
             "launches": {name: 0 for name in band.launch_counts()},
             "launch_shapes": {name: collections.Counter()
                               for name in band.launch_counts()},
-            "phase_cuda_calls": 0, "cells_device": 0, "cells_host": 0,
+            "phase_cuda_calls": 0, "phase_em_launches": 0,
+            "cells_device": 0, "cells_host": 0,
             "cells_host_device_calls": 0}
 
 
 def audit_failures(families: dict, device: torch.device) -> list:
     """What the device families' seeds, taken together, failed to run on
     the device: in a family that aligned any DP cell, a device DP cell
-    and, on CUDA, a band_fwd and a band_bwd launch; on CUDA, a phasing
-    EM run in every device family; and device DP cells over all of them.
+    and, on CUDA, a band_fwd and a band_bwd launch; on CUDA, a launch of
+    the EM kernel in every device family, and no CUDA EM run without it;
+    and device DP cells over all of them.
     A family whose scenes give the aligner no pair at all (the somatic
     scene plants SNVs only and its reads carry substitutions only) owes
     no launch."""
@@ -569,10 +573,13 @@ def audit_failures(families: dict, device: torch.device) -> list:
                 missing.append("device DP cells")
             if device.type == "cuda":
                 missing += [n for n, k in rec["launches"].items() if k <= 0]
-        if device.type == "cuda" and rec["phase_cuda_calls"] <= 0:
-            missing.append("CUDA EM")
+        if device.type == "cuda" and rec["phase_em_launches"] <= 0:
+            missing.append("EM kernel launch")
         if missing:
             bad.append(f"{fam}: no {', no '.join(missing)}")
+        plain = rec["phase_cuda_calls"] - rec["phase_em_launches"]
+        if plain:
+            bad.append(f"{fam}: {plain} CUDA EM runs without the EM kernel")
     ran = [families[f] for f in DEVICE_FAMILIES
            if f in families and families[f]["seeds"]]
     if ran and not sum(rec["cells_device"] for rec in ran):

@@ -153,8 +153,9 @@ def test_prefix_scan_equals_serial_scan(seed):
 
 
 def test_tf32_refused_on_cuda(monkeypatch):
-    """The EM's dots are exact only in full fp32: with TF32 on, a CUDA run
-    must refuse rather than round."""
+    """The torch form's dots are exact only in full fp32: with TF32 on, a
+    CUDA run of it (the mesh's EM, the yardstick on the card) must refuse
+    rather than round.  The kernel sums in int32."""
     arrays = from_numpy(_window(0, R=8, V=8), CPU)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
 
@@ -165,4 +166,4 @@ def test_tf32_refused_on_cuda(monkeypatch):
     monkeypatch.setattr(FakeCuda, "device", property(
         lambda self: torch.device("cuda", 0)))
     with pytest.raises(RuntimeError, match="allow_tf32"):
-        tpk.phase_fixpoint(fake, *arrays[1:])
+        tpk.phase_fixpoint_plain(fake, *arrays[1:])

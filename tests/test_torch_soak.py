@@ -178,6 +178,7 @@ def test_main_cpu_summary(tmp_path, capsys):
         assert rec["launches"] == {"band_fwd": 0, "band_bwd": 0}
         assert rec["launch_shapes"] == {"band_fwd": {}, "band_bwd": {}}
         assert rec["phase_cuda_calls"] == 0
+        assert rec["phase_em_launches"] == 0
     assert fams["pipeline"]["cells_device"] > 0
     assert fams["pipeline"]["device_share_of_dp_cells"] == 1.0
     assert fams["f1"]["cells_device"] == 0 and fams["f1"]["cells_host"] > 0

@@ -12,15 +12,20 @@ built once under ``--work`` (default build/profile_work, git-ignored)
 and reused.  The modules are those of the checkout at ``--root``
 (default: this one), put first on sys.path, so that two checkouts can be
 compared in turns in one call (parent, change, change, parent), each
-building its own kernels.  One warm-up pass, then ``--passes`` passes
-under torch.profiler (bench_torch.profiled_pass: the busy ms is the
-union of the card's event intervals).  One JSON line a pass, with the
-card's name and power limit; ``--out`` appends them to a file.
+building its own kernels.  The measuring code is this checkout's
+(bench_torch.profiled_pass with every event name, loaded from here
+whatever ``--root`` is).  One warm-up pass, then ``--passes`` passes
+under torch.profiler (the busy ms is the union of the card's event
+intervals; ``by_name`` each event name's ms and count).  One JSON line a
+pass, with the card's name and power limit, the band kernels' launches
+and the EM kernel's (``phase_em``, where the checkout has it); ``--out``
+appends them to a file.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import io
 import json
 import os
@@ -44,10 +49,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_device_round: no CUDA card", file=sys.stderr)
         return 2
-    import bench_torch
     import chip_smoke
     from longcalld_torch.core.pipeline import run_call
-    from longcalld_torch.ops import band
+    from longcalld_torch.ops import band, phase_kernel
+    # this checkout's bench module, over the modules of --root
+    spec = importlib.util.spec_from_file_location(
+        "profile_bench", os.path.join(HERE, "bench_torch.py"))
+    bench_torch = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench_torch)
+    em_counts = getattr(phase_kernel, "em_launch_counts", dict)
+    em_shapes = getattr(phase_kernel, "em_launch_shapes", dict)
+    em_reset = getattr(phase_kernel, "reset_em_launch_counts", lambda: None)
 
     dev = torch.device("cuda:0")
     fa = os.path.join(args.work, "synth2000000.fa")
@@ -60,10 +72,12 @@ def main() -> int:
     card = chip_smoke.card_line()
     for k in range(args.passes):
         band.reset_launch_counts()
-        row = bench_torch.profiled_pass(opt, dev)
+        em_reset()
+        row = bench_torch.profiled_pass(opt, dev, every_name=True)
         row.update(root=os.path.relpath(root, HERE), card=card, pass_=k,
-                   launches=band.launch_counts(),
-                   launch_shapes=band.launch_shapes())
+                   launches={**band.launch_counts(), **em_counts()},
+                   launch_shapes=band.launch_shapes(),
+                   em_launch_shapes=em_shapes())
         line = json.dumps(row)
         print(line, flush=True)
         if args.out:
