@@ -214,15 +214,13 @@ def timed_pass(opt, dev, audit: dict, pool: bool) -> tuple:
     card's synchronize.  Adds the pass's aligner deltas (the pool's
     aln_* counters for a ``pool`` configuration, the workers' kernel
     launches among them), the parent's kernel launches (the EM kernel's
-    beside the band kernels') and band launches by shape, and its device
-    rounds to ``audit``.  Returns (wall, VCF body)."""
+    beside the band kernels') and band launches by shape to ``audit``.
+    Returns (wall, VCF body)."""
     from longcalld_torch.core.pipeline import run_call
     from longcalld_torch.ops import band, phase_kernel, wfa
 
     totals = _pool_counters if pool else wfa.aligner_totals
     clear_memos()
-    for al in wfa._ALIGNER_CACHE.values():
-        al.round_log.clear()
     band.reset_launch_counts()
     phase_kernel.reset_em_launch_counts()
     before = totals()
@@ -237,8 +235,6 @@ def timed_pass(opt, dev, audit: dict, pool: bool) -> tuple:
     _add(audit.setdefault("launches", {}), {
         **band.launch_counts(), **phase_kernel.em_launch_counts()})
     _add(audit.setdefault("launch_shapes", {}), band.launch_shapes())
-    audit.setdefault("round_log", []).extend(
-        e for al in wfa._ALIGNER_CACHE.values() for e in al.round_log)
     return wall, _body(buf.getvalue())
 
 
@@ -774,15 +770,9 @@ def run(fa: str, bam: str, dev, rounds: int = ROUNDS,
         cells["cells_device"] / max(1, cells["cells_device"]
                                     + cells["cells_host"]))
     forced["device_majority"] = cells["cells_device"] > cells["cells_host"]
-    rounds_log = res["device_forced"]["audit"]["round_log"]
-    n_forced = len(res["device_forced"]["walls"])
     forced["device_round_budget"] = {
-        "rounds_per_pass": len(rounds_log) / n_forced,
-        "sum_round_wall_s_per_pass": sum(e["round_s"] for e in rounds_log)
-        / n_forced,
-        "rounds": [{k: e[k] for k in ("n_pairs", "n_groups", "round_s",
-                                      "submit_s", "bytes_h2d")}
-                   for e in rounds_log[:12]]}
+        "rounds_per_pass": cells["n_dev_rounds"]
+        / len(res["device_forced"]["walls"])}
     if dev.type == "cuda" and not all(forced["launches"].get(k, 0) > 0
                                       for k in ("band_fwd", "band_bwd",
                                                 "phase_em")):

@@ -6,13 +6,16 @@ overrides); build_parser, merge_vcfs and opts_from_args are
 longcalld_tpu/cli.py's.  `call` runs longcalld_torch's run_call on cuda:0
 (``--no-device``: host only), and ``--profile DIR`` writes a
 torch.profiler trace (DIR/trace.json, viewable in Perfetto or
-chrome://tracing).
+chrome://tracing) with the spans of every process of the run
+(utils/counters: the pool workers' windows and stages among them) as
+events of their own processes.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import sys
 from typing import List, Optional
@@ -125,8 +128,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "run on the host C aligner (default: derived from "
                         "measured link latency + host throughput)")
     c.add_argument("--profile", default=None, metavar="DIR",
-                   help="write a torch.profiler trace of the run to "
-                        "DIR/trace.json (view in Perfetto)")
+                   help="write a torch.profiler trace of the run, with the "
+                        "spans of every process of the run (pool workers' "
+                        "windows and stages included), to DIR/trace.json "
+                        "(view in Perfetto)")
     c.add_argument("-V", "--verbose", action="count", default=0,
                    help="debug verbosity (repeat: 1 window summaries, "
                         "2 candidate sites, 3 digars)")
@@ -275,7 +280,37 @@ def _stop_profiler(prof, path: str) -> str:
     os.makedirs(path, exist_ok=True)
     out = os.path.join(path, "trace.json")
     prof.export_chrome_trace(out)
+    _add_spans(out)
     return out
+
+
+def _add_spans(path: str) -> None:
+    """Add the spans of every process of the run (utils/counters, the
+    pool workers' shipped ones among them) to the Chrome trace at
+    ``path`` as complete ("X") events, each under its own process id and
+    thread, on the trace's own time base: kineto writes ``ts`` in
+    microseconds after ``baseTimeNanoseconds`` of the same Unix-ns clock
+    that stamps the spans."""
+    from longcalld_torch.utils import counters
+    with open(path) as fh:
+        trace = json.load(fh)
+    base = int(trace.get("baseTimeNanoseconds", 0))
+    events = trace.setdefault("traceEvents", [])
+    workers = {}
+    for s in counters.spans():
+        if s.worker is not None:
+            workers[s.pid] = s.worker
+        args = dict(s.attrs or {}, window=s.window, span_id=s.id,
+                    parent_id=s.parent)
+        events.append({"ph": "X", "cat": "span", "name": s.name,
+                       "pid": s.pid, "tid": s.tid,
+                       "ts": (s.t0 - base) / 1e3, "dur": (s.t1 - s.t0) / 1e3,
+                       "args": args})
+    for pid, k in workers.items():
+        events.append({"ph": "M", "name": "process_name", "pid": pid,
+                       "tid": 0, "args": {"name": f"pool worker {k}"}})
+    with open(path, "w") as fh:
+        json.dump(trace, fh)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -50,6 +50,7 @@ from longcalld_torch.io.bam import (FSECONDARY, FSUPPLEMENTARY, FUNMAP,
                                     BamReader, BamRecord)
 from longcalld_torch.io.fasta import FastaFile
 from longcalld_torch.io.vcf import write_var_records, write_vcf_header
+from longcalld_torch.utils import counters
 from longcalld_torch.utils.intervals import IntervalSet
 from longcalld_torch.utils.sdust import sdust_native
 
@@ -172,12 +173,12 @@ def collect_digars(opt: CallOpts, chunk: WindowChunk) -> None:
 
 def call_window(opt: CallOpts, chunk: WindowChunk) -> None:
     """collect_var_main (collect_var.c:2897-2980), clean path + noisy loop."""
-    from longcalld_torch.utils import counters, log
+    from longcalld_torch.utils import log
 
-    with counters.timed("digar"):
+    with counters.span("digar"):
         collect_digars(opt, chunk)
 
-    with counters.timed("sites"):
+    with counters.span("sites"):
         sites = collect_all_cand_var_sites(opt, chunk.digars, chunk.order,
                                            chunk.reg_beg, chunk.reg_end)
         if sites:
@@ -188,7 +189,7 @@ def call_window(opt: CallOpts, chunk: WindowChunk) -> None:
                                collect_cand_vars_fast(opt, sites,
                                                       chunk.digars,
                                                       chunk.order))
-    with counters.timed("classify"):
+    with counters.span("classify"):
         classify.pre_process_noisy_regs(chunk, opt)
         if sites:
             classify.classify_cand_vars(chunk, opt)
@@ -240,20 +241,20 @@ def call_window(opt: CallOpts, chunk: WindowChunk) -> None:
     if len(chunk.cand_vars) == 0 and not has_noisy:
         return
     if len(chunk.cand_vars) > 0:
-        with counters.timed("profile"):
+        with counters.span("profile"):
             profile.collect_read_var_profile(opt, chunk)
-        with counters.timed("phase"):
+        with counters.span("phase"):
             phase.assign_haplotypes(
                 opt, chunk, config.CLEAN_HET_SNP | config.CLEAN_HET_INDEL
                 | config.CLEAN_HOM_VAR)
     if has_noisy:
         from longcalld_torch.core.noisy import process_noisy_regions
-        with counters.timed("noisy"):
+        with counters.span("noisy"):
             process_noisy_regions(opt, chunk)
         counters.inc("noisy_regions", len(chunk.noisy_regs))
     if opt.out_somatic:
         from longcalld_torch.core.somatic_call import collect_somatic_var
-        with counters.timed("somatic"):
+        with counters.span("somatic"):
             collect_somatic_var(opt, chunk)
 
 
@@ -440,37 +441,45 @@ def _range_worker(payload):
     is the torch device of a device worker (``opt.use_device``), resolved
     before any window so that a worker whose card is missing raises
     instead of running host-only.  Returns (per-window results, counter
-    delta); each per-window entry is either None (no reads) or (sorted
-    variant records, n_reads, boundary state)."""
+    delta, (span records, dropped count)); each per-window entry is
+    either None (no reads) or (sorted variant records, n_reads, boundary
+    state).  The spans are those this process recorded since its last
+    range, taken out of its store (utils/counters.take_spans)."""
     opt, wslice, first_k, count, device = payload
-    dev = None
-    if getattr(opt, "use_device", True):
-        from longcalld_torch.utils.device import resolve_device
-        dev = resolve_device(device)
-    fasta, bams, te_idx = _worker_handles(opt)
-    if te_idx is not None:
-        setattr(opt, "_te_index", te_idx)
-        setattr(opt, "_te_names", te_idx.names)
-    before = _worker_totals()
-    results = []
-    for k in range(first_k, first_k + count):
-        win = wslice[k]
-        pw = wslice[k - 1] if k > 0 else None
-        pw = pw if (pw and pw.chunk_i == win.chunk_i) else None
-        nxt = wslice[k + 1] if k + 1 < len(wslice) else None
-        nxt = nxt if (nxt and nxt.chunk_i == win.chunk_i) else None
-        chunk = load_chunk(opt, fasta, bams, win, pw, nxt)
-        if chunk is None:
-            results.append(None)
-            continue
-        if dev is not None:
-            chunk._device = dev
-        call_window(opt, chunk)
-        variants = genotype.make_variants(opt, chunk)
-        variants.sort(key=lambda v: v.pos)
-        results.append((variants, chunk.n_reads, _boundary_state(chunk)))
-    after = _worker_totals()
-    return results, {k: after[k] - before[k] for k in after}
+    with counters.span("range", first=first_k, count=count):
+        dev = None
+        if getattr(opt, "use_device", True):
+            from longcalld_torch.utils.device import resolve_device
+            dev = resolve_device(device)
+        fasta, bams, te_idx = _worker_handles(opt)
+        if te_idx is not None:
+            setattr(opt, "_te_index", te_idx)
+            setattr(opt, "_te_names", te_idx.names)
+        before = _worker_totals()
+        results = []
+        for k in range(first_k, first_k + count):
+            win = wslice[k]
+            pw = wslice[k - 1] if k > 0 else None
+            pw = pw if (pw and pw.chunk_i == win.chunk_i) else None
+            nxt = wslice[k + 1] if k + 1 < len(wslice) else None
+            nxt = nxt if (nxt and nxt.chunk_i == win.chunk_i) else None
+            with counters.window_span(k) as wattrs:
+                with counters.span("load"):
+                    chunk = load_chunk(opt, fasta, bams, win, pw, nxt)
+                if chunk is None:
+                    results.append(None)
+                    continue
+                wattrs["n_reads"] = chunk.n_reads
+                if dev is not None:
+                    chunk._device = dev
+                call_window(opt, chunk)
+                with counters.span("genotype"):
+                    variants = genotype.make_variants(opt, chunk)
+                    variants.sort(key=lambda v: v.pos)
+            results.append((variants, chunk.n_reads, _boundary_state(chunk)))
+        after = _worker_totals()
+    return (results, {k: after[k] - before[k] for k in after},
+            counters.take_spans())
 
 
 _PS_MAX = np.iinfo(np.int64).max
@@ -673,6 +682,18 @@ def _block_lpt_order(costs, n_workers: int):
     return order
 
 
+def _waited(stream):
+    """The items of ``stream``, each wait for the next one recorded as a
+    ``pool_wait`` span (the consumer blocked on the pool)."""
+    it = iter(stream)
+    while True:
+        with counters.span("pool_wait"):
+            item = next(it, None)
+        if item is None:
+            return
+        yield item
+
+
 def _run_call_procs(opt: CallOpts, out: TextIO, wins, n_workers: int,
                     bams=None, device=None) -> int:
     """kt_for over windows as share-nothing worker processes; the parent
@@ -688,7 +709,7 @@ def _run_call_procs(opt: CallOpts, out: TextIO, wins, n_workers: int,
     import dataclasses
 
     from longcalld_torch.core import procpool
-    from longcalld_torch.utils import counters, log
+    from longcalld_torch.utils import log
 
     dev_workers = bool(getattr(opt, "procs_use_device", False))
     opt_w = dataclasses.replace(opt, use_device=dev_workers,
@@ -739,20 +760,24 @@ def _run_call_procs(opt: CallOpts, out: TextIO, wins, n_workers: int,
         if first_pending >= len(wins):
             return n_out
 
-    ranges, order = _plan_ranges(wins[first_pending:], n_workers, bams)
+    with counters.span("plan"):
+        ranges, order = _plan_ranges(wins[first_pending:], n_workers, bams)
     ranges = [(first_pending + f, c) for f, c in ranges]
     range_worker: dict = {}
-    for ridx, (results, cdelta) in enumerate(procpool.imap_ranges(
-            opt_w, wins, ranges, n_workers, worker_env_fn=env_fn,
-            range_worker_out=range_worker, order=order,
-            device=worker_dev)):
+    for ridx, (results, cdelta, shipped) in enumerate(_waited(
+            procpool.imap_ranges(opt_w, wins, ranges, n_workers,
+                                 worker_env_fn=env_fn,
+                                 range_worker_out=range_worker, order=order,
+                                 device=worker_dev))):
+        worker = range_worker.get(ridx, -1)
+        counters.absorb(*shipped, worker=worker)
         for k, v in cdelta.items():
             if v:
                 counters.inc(f"aln_{k}", v)
                 if dev_workers:
                     # per-worker attribution: which worker ran this
                     # range's alignment work and kernel launches
-                    counters.inc(f"aln_{k}_w{range_worker.get(ridx, -1)}", v)
+                    counters.inc(f"aln_{k}_w{worker}", v)
         for entry in results:
             win = wins[wi]
             if entry is None:
@@ -763,15 +788,18 @@ def _run_call_procs(opt: CallOpts, out: TextIO, wins, n_workers: int,
                 continue
             variants, n_reads_w, state = entry
             if prev_state is not None and win.reg_i > 0:
-                decision = _cross_flip_decision(prev_state, state)
-                if decision is not None:
-                    _apply_cross_flip(variants, state, decision)
+                with counters.span("stitch", window=wi):
+                    decision = _cross_flip_decision(prev_state, state)
+                    if decision is not None:
+                        _apply_cross_flip(variants, state, decision)
             if ckpt is None:
-                n_rec = write_var_records(out, win.tname, variants, opt)
+                with counters.span("vcf", window=wi):
+                    n_rec = write_var_records(out, win.tname, variants, opt)
             else:
                 import io as _io
                 buf = _io.StringIO()
-                n_rec = write_var_records(buf, win.tname, variants, opt)
+                with counters.span("vcf", window=wi):
+                    n_rec = write_var_records(buf, win.tname, variants, opt)
                 body = buf.getvalue()
                 out.write(body)
                 # saved POST-flip, so a resume's first vote sees the same
@@ -808,12 +836,26 @@ def run_call(opt: CallOpts, out: TextIO = sys.stdout,
     ``procs_use_device``.  ``mesh``: an explicit device list (it may
     repeat a card) for the in-process phasing mesh, only with
     ``opt.mesh_devices > 1`` and of that length; default
-    ``make_mesh(opt.mesh_devices, device)``."""
+    ``make_mesh(opt.mesh_devices, device)``.  The call is one ``call``
+    span; under -V the stage table (the pool workers' stages included)
+    follows it."""
+    from longcalld_torch.utils import log
+
+    with counters.span("call"):
+        n_out = _run_call(opt, out, cmdline, device, mesh)
+    if log.VERBOSE >= 1:
+        for line in counters.summary_lines():
+            log.debug(1, "counters", line)
+    return n_out
+
+
+def _run_call(opt: CallOpts, out: TextIO, cmdline: str, device,
+              mesh) -> int:
     import os as _os
     import threading
     from concurrent.futures import ThreadPoolExecutor
 
-    from longcalld_torch.utils import counters, log
+    from longcalld_torch.utils import log
 
     # process-parallel eligibility, exactly the JAX run_call's
     # (pipeline.py:679-691): host_procs -1 = auto (follow -t), 0 = off,
@@ -849,22 +891,24 @@ def run_call(opt: CallOpts, out: TextIO = sys.stdout,
             raise ValueError(f"bad shard spec {opt.shard!r}")
         chunk_filter = lambda ci: ci % sn == si  # noqa: E731
     plan_stats: dict = {}
-    wins = plan_windows(opt, bams[0].references, bams[0].lengths,
-                        max_reg_len=opt.window_size, busy_fn=_busy_fn,
-                        chunk_filter=chunk_filter, stats=plan_stats)
+    with counters.span("plan"):
+        wins = plan_windows(opt, bams[0].references, bams[0].lengths,
+                            max_reg_len=opt.window_size, busy_fn=_busy_fn,
+                            chunk_filter=chunk_filter, stats=plan_stats)
+        if plan_stats.get("busy_errors", 0):
+            try:
+                n_before = len(wins)
+                wins = _filter_busy_windows(bams, wins)
+                plan_stats["n_dropped"] = (plan_stats.get("n_dropped", 0)
+                                           + n_before - len(wins))
+            except Exception as e:
+                log.warning("run_call",
+                            "window-emptiness filter failed "
+                            f"({type(e).__name__}: {e}); processing all "
+                            f"{len(wins)} windows")
     if not opt.no_vcf_header:
         write_vcf_header(out, bams[0].references, bams[0].lengths, sample,
                          cmdline)
-    if plan_stats.get("busy_errors", 0):
-        try:
-            n_before = len(wins)
-            wins = _filter_busy_windows(bams, wins)
-            plan_stats["n_dropped"] = (plan_stats.get("n_dropped", 0)
-                                       + n_before - len(wins))
-        except Exception as e:
-            log.warning("run_call",
-                        f"window-emptiness filter failed ({type(e).__name__}:"
-                        f" {e}); processing all {len(wins)} windows")
     n_wins_planned = plan_stats.get("n_planned", len(wins))
     n_dropped = plan_stats.get("n_dropped", 0)
     counters.inc("wins_planned", n_wins_planned)
@@ -922,12 +966,15 @@ def run_call(opt: CallOpts, out: TextIO = sys.stdout,
     def _stage0(wi: int) -> Optional[WindowChunk]:
         fasta_l, bams_l = _handles()
         pw, nxt = _neighbors(wi)
-        chunk = load_chunk(opt, fasta_l, bams_l, wins[wi], pw, nxt)
-        if chunk is not None:
-            if window_devs:
-                chunk._device = window_devs[wi % len(window_devs)]
-                chunk._mesh = mesh
-            call_window(opt, chunk)
+        with counters.window_span(wi) as wattrs:
+            with counters.span("load"):
+                chunk = load_chunk(opt, fasta_l, bams_l, wins[wi], pw, nxt)
+            if chunk is not None:
+                wattrs["n_reads"] = chunk.n_reads
+                if window_devs:
+                    chunk._device = window_devs[wi % len(window_devs)]
+                    chunk._mesh = mesh
+                call_window(opt, chunk)
         return chunk
 
     # kt_for + kt_pipeline analog (pipeline.py:788-856): stage-0 workers
@@ -979,11 +1026,14 @@ def run_call(opt: CallOpts, out: TextIO = sys.stdout,
                                             else None))
                 continue
             if prev_chunk is not None and win.reg_i > 0:
-                stitch_pair(opt, prev_chunk, chunk)
-            variants = genotype.make_variants(opt, chunk)
-            variants.sort(key=lambda v: v.pos)
+                with counters.span("stitch", window=wi):
+                    stitch_pair(opt, prev_chunk, chunk)
+            with counters.span("genotype", window=wi):
+                variants = genotype.make_variants(opt, chunk)
+                variants.sort(key=lambda v: v.pos)
             if ckpt is None:
-                n_rec = write_var_records(out, win.tname, variants, opt)
+                with counters.span("vcf", window=wi):
+                    n_rec = write_var_records(out, win.tname, variants, opt)
                 if bam_writer is not None:
                     from longcalld_torch.io.bam_writer import \
                         write_window_reads
@@ -991,7 +1041,8 @@ def run_call(opt: CallOpts, out: TextIO = sys.stdout,
             else:
                 import io as _io
                 buf = _io.StringIO()
-                n_rec = write_var_records(buf, win.tname, variants, opt)
+                with counters.span("vcf", window=wi):
+                    n_rec = write_var_records(buf, win.tname, variants, opt)
                 body = buf.getvalue()
                 out.write(body)
                 cap = None
@@ -1012,9 +1063,6 @@ def run_call(opt: CallOpts, out: TextIO = sys.stdout,
         pool.shutdown(wait=False, cancel_futures=True)
     if bam_writer is not None:
         bam_writer.close()
-    if log.VERBOSE >= 1:
-        for line in counters.summary_lines():
-            log.debug(1, "counters", line)
     return n_out
 
 

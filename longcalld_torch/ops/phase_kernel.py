@@ -44,7 +44,7 @@ import torch
 
 from longcalld_torch.ops.band import sm_count
 from longcalld_torch.ops.convert import from_numpy
-from longcalld_torch.utils import kbuild
+from longcalld_torch.utils import counters, kbuild
 from longcalld_torch.utils.device import resolve_device
 
 
@@ -567,12 +567,15 @@ def run_phase_kernel(opt, chunk, target_cate: int,
         # host tensors: each read block is copied straight to its device
         buf = pack_phase_out(sharded_phase_fixpoint(mesh)(
             *from_numpy(arrays, "cpu")))
-    elif dev.type == "cuda":
-        buf = phase_em(*from_numpy(arrays, dev))
     else:
-        buf = pack_phase_out(phase_fixpoint_plain(*from_numpy(arrays, dev)))
+        with counters.span("device_wait", dir="h2d"):
+            args = from_numpy(arrays, dev)
+        buf = (phase_em(*args) if dev.type == "cuda"
+               else pack_phase_out(phase_fixpoint_plain(*args)))
     # one device-to-host copy: the EM's one host wait
-    out = unpack_phase_out(buf.cpu(), R, V)
+    with counters.span("device_wait", dir="d2h"):
+        buf = buf.cpu()
+    out = unpack_phase_out(buf, R, V)
     cons = out.cons.numpy()
     haps = out.haps.numpy()
     ps_start = out.ps_start.numpy()[:n_vars]

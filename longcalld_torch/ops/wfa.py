@@ -10,11 +10,13 @@ longcalld_tpu/ops/wfa.py.
 * ``BatchAligner``, ``get_aligner``, ``aligner_totals`` and
   ``calibrate_min_cells`` are wfa.py:505-962 carried over: the memo, size
   and band routing, buckets, the reversal trick for the left-gap
-  convention, ``_reconstruct``, the host C fallback and ``round_log`` are
-  unchanged.  Left behind: the shape-journal prewarm, the link trims
-  (``_trim_*``), the asynchronous event-head copy and the VMEM chunking.
-  In place of the VMEM cap, ``align_device`` splits a batch so that one
-  launch's traceback buffer stays under ``TB_BUDGET_BYTES``.
+  convention, ``_reconstruct`` and the host C fallback are unchanged.
+  Left behind: the shape-journal prewarm, the link trims (``_trim_*``),
+  the per-round log, the asynchronous event-head copy and the VMEM
+  chunking.  In place of the VMEM cap, ``align_device`` splits a batch
+  so that one launch's traceback buffer stays under ``TB_BUDGET_BYTES``.
+  Each host wait on the card (an upload, a copy back) is a
+  ``device_wait`` span (utils/counters).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from longcalld_torch.ops.affine_align import (AlnResult, _finish,
                                               align_affine2p,
                                               align_affine2p_many)
 from longcalld_torch.ops.convert import from_numpy
+from longcalld_torch.utils import counters
 from longcalld_torch.utils.device import resolve_device
 
 BIG = band.BIG
@@ -185,8 +188,6 @@ class BatchAligner:
         # identical pairs; alignment is deterministic
         self._memo: dict = {}
         self.n_memo_hit = 0
-        # per-device-round audit: submit->collect wall, pair/group counts
-        self.round_log: list = []
 
     def memo_clear(self) -> None:
         self._memo.clear()
@@ -304,16 +305,9 @@ class BatchAligner:
                            BAND_BUCKETS))
             groups.setdefault(key, []).append(k)
         self.n_dev_rounds += 1
-        h2d0 = self.bytes_h2d
-        t0 = time.perf_counter()
         subs = [(idxs, self._submit_batch([work_pairs[k] for k in idxs]))
                 for idxs in groups.values()]
-        entry = {"t_submit": t0,
-                 "submit_s": round(time.perf_counter() - t0, 5),
-                 "n_pairs": len(pairs), "n_groups": len(groups),
-                 "bytes_h2d": self.bytes_h2d - h2d0,
-                 "cells": sum(len(p) * len(t) for p, t in pairs)}
-        return ("dev", len(pairs), flags, subs, entry)
+        return ("dev", len(pairs), flags, subs)
 
     def _collect_work(self, token) -> List[AlnResult]:
         if token[0] == "empty":
@@ -329,16 +323,12 @@ class BatchAligner:
             for k, r in zip(big, big_sub):
                 out[k] = r
             return out  # type: ignore[return-value]
-        _, n_all, flags, subs, entry = token
+        _, n_all, flags, subs = token
         out_all: List[Optional[AlnResult]] = [None] * n_all
         for idxs, handle in subs:
             sub = self._collect_batch(handle)
             for k, r in zip(idxs, sub):
                 out_all[k] = r
-        entry["round_s"] = round(time.perf_counter() - entry.pop("t_submit"),
-                                 5)
-        if len(self.round_log) < 10000:
-            self.round_log.append(entry)
         out_all = [AlnResult(r.cigar[::-1].copy(),
                              r.pattern_alg[::-1].copy(),
                              r.text_alg[::-1].copy(), r.score)
@@ -390,22 +380,25 @@ class BatchAligner:
 
         self.n_dispatch += 1
         self.bytes_h2d += P.nbytes + Tband.nbytes + 3 * 4 * n
-        evs_d, meta_d = align_device(
-            *from_numpy((P, Tband, plens, tlens, dlo.astype(np.int32)),
-                        self.device),
-            B, Lp, self.x, self.o1, self.e1, self.o2, self.e2)
+        with counters.span("device_wait", dir="h2d"):
+            args = from_numpy((P, Tband, plens, tlens, dlo.astype(np.int32)),
+                              self.device)
+        evs_d, meta_d = align_device(*args, B, Lp, self.x, self.o1, self.e1,
+                                     self.o2, self.e2)
         return (pairs, n_real, dlo, host_mask, Lp, evs_d, meta_d)
 
     def _collect_batch(self, handle) -> List[AlnResult]:
         pairs, n_real, dlo, host_mask, Lp, evs_d, meta_d = handle
         if meta_d is None:
             return [self._host_exact(p, t) for p, t in pairs[:n_real]]
-        meta = meta_d[:n_real].cpu().numpy()
+        with counters.span("device_wait", dir="d2h"):
+            meta = meta_d[:n_real].cpu().numpy()
         # meta[:, 3] (n_ev) bounds the walk width; -1 marks unencodable
         # pairs, which take the host fallback anyway
         n_ev = meta[:, 3]
         width = int(n_ev.max(initial=0))
-        evs = evs_d[:n_real, :width].cpu().numpy()
+        with counters.span("device_wait", dir="d2h"):
+            evs = evs_d[:n_real, :width].cpu().numpy()
 
         out: List[Optional[AlnResult]] = [None] * n_real
         retry: List[int] = []

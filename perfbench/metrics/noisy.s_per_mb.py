@@ -1,0 +1,20 @@
+"""noisy.s_per_mb (s/Mb): seconds of noisy-region re-assembly
+(core/noisy.py, core/consensus.py), the self time of the ``noisy`` spans
+of every process cut to the window (their ``device_wait`` children left
+out), per Mb of contig called.  None without noisy spans, or where a
+span was dropped."""
+
+from longcalld_torch.utils import counters
+
+NAMES = ("noisy",)
+
+
+def read(ctx):
+    between = getattr(counters, "spans_between", None)
+    if between is None or ctx["mb_called"] <= 0:
+        return None
+    spans = [s for s in between(ctx["t0_ns"], ctx["t1_ns"]) or ()
+             if s.name in NAMES]
+    if not spans:
+        return None
+    return sum(s.self_ns for s in spans) / 1e9 / ctx["mb_called"]

@@ -45,17 +45,17 @@ COPIED = (
         "bam", "bam_writer", "bgzf", "cram", "fasta", "remote", "vcf")]
     + ["ops/affine_align.py"]
     + [f"utils/{m}.py" for m in (
-        "cbuild", "checkpoint", "counters", "intervals", "log", "mathx",
-        "sdust")]
+        "cbuild", "checkpoint", "intervals", "log", "mathx", "sdust")]
     + [f"native/{m}.c" for m in (
         "affine2p", "profilejoin", "rans4x8", "ransnx16", "sdust")])
 # whole modules of the port that merge the JAX package's host code with
 # the port's device code: not copies
 MERGED = ("cli.py", "core/pipeline.py")
-# the port's own forms of the JAX package's device modules
+# the port's own forms of the JAX package's device modules, and its span
+# recorder (utils/counters.py: the JAX package's counters plus spans)
 OWN = ("__init__.py", "core/procpool.py", "core/procworker.py",
        "ops/phase_kernel.py", "ops/wfa.py", "parallel/mesh.py",
-       "utils/device.py")
+       "utils/counters.py", "utils/device.py")
 
 
 def _files(top, exts):
