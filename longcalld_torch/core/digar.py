@@ -8,6 +8,12 @@ X/gap-density sliding window (xid_queue_t, src/bam_utils.c:123-200) becomes a
 two-pointer prefix-sum sweep, and clip/skip policies follow the reference
 constants.
 
+``collect_window_digars`` is the entry of a window: one call of
+native/digar.c computes the digar of every read with an =/X CIGAR, or
+an M CIGAR and no cs/MD tag (the same tables as collect_digar_eqx and
+collect_digar_from_ref); the other reads, and every read where the
+library cannot be built, take the per-read Python path.
+
 Events use BAM op codes: 7 '=', 8 'X', 1 'I', 2 'D', 4 'S', 5 'H'.
 ``pos`` is the 1-based reference position; ``qi`` the 0-based query index
 (for DEL: the first read base after the deletion).
@@ -16,7 +22,8 @@ Events use BAM op codes: 7 '=', 8 'X', 1 'I', 2 'D', 4 'S', 5 'H'.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+import threading
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -490,3 +497,198 @@ def collect_digar_from_cs(read: BamRecord, opt: CallOpts, reg_beg: int,
         ops.append(right)
     return collect_digar_eqx(_rewritten(read, ops), opt, reg_beg, reg_end,
                              whole_ref_len)
+
+
+def collect_read_digar(read: BamRecord, opt: CallOpts, reg_beg: int,
+                       reg_end: int, whole_ref_len: int,
+                       ref_nt4: np.ndarray, ref_beg: int
+                       ) -> Tuple[Optional[ReadDigar],
+                                  List[Tuple[int, int, int]], bool]:
+    """The Python path of one read, its source chosen as
+    collect_digars_from_bam chooses it (collect_var.c:1063-1110): =/X
+    CIGAR, else the cs tag, else the MD tag, else the reference."""
+    if read.has_eqx_cigar():
+        return collect_digar_eqx(read, opt, reg_beg, reg_end, whole_ref_len)
+    if read.has_tag("cs"):
+        return collect_digar_from_cs(read, opt, reg_beg, reg_end,
+                                     whole_ref_len)
+    if read.has_tag("MD"):
+        return collect_digar_from_md(read, opt, reg_beg, reg_end,
+                                     whole_ref_len)
+    return collect_digar_from_ref(read, opt, reg_beg, reg_end, whole_ref_len,
+                                  ref_nt4, ref_beg)
+
+
+# ---------------- native window pass (native/digar.c) ----------------
+
+_NATIVE = None
+_count_lock = threading.Lock()
+_read_counts = {"digar_native_reads": 0, "digar_python_reads": 0}
+
+# native/digar.c's per-read status
+_KEPT, _SKIPPED, _PYTHON = 0, 1, 2
+
+
+def read_counts() -> dict:
+    """Reads this process sent through native/digar.c and through the
+    Python path."""
+    with _count_lock:
+        return dict(_read_counts)
+
+
+def _count_reads(native: int, python: int) -> None:
+    with _count_lock:
+        _read_counts["digar_native_reads"] += native
+        _read_counts["digar_python_reads"] += python
+
+
+def load_digar_native():
+    """ctypes binding to native/digar.c; False when no library could be
+    built (the window then takes the Python path)."""
+    global _NATIVE
+    if _NATIVE is not None:
+        return _NATIVE
+    import ctypes
+    import os
+    from longcalld_torch.utils.cbuild import build_so
+    d = os.path.join(os.path.dirname(os.path.dirname(__file__)), "native")
+    so = os.path.join(d, "_digar.so")
+    if not build_so(os.path.join(d, "digar.c"), so):
+        _NATIVE = False
+        return False
+    try:
+        lib = ctypes.CDLL(so)
+    except OSError:
+        _NATIVE = False
+        return False
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.lcd_digar_window.restype = p
+    lib.lcd_digar_window.argtypes = [i64, p, p, p, p, i64, i64, p, p, p, p,
+                                     p, p, p, p]
+    lib.lcd_digar_take.restype = None
+    lib.lcd_digar_take.argtypes = [p] * 10
+    _NATIVE = lib
+    return lib
+
+
+def _ptr(a: np.ndarray) -> int:
+    return a.ctypes.data
+
+
+class _WindowArrays:
+    """native/digar.c's outputs for a window's reads."""
+
+    def __init__(self, lib, opt: CallOpts, reads: Sequence[BamRecord],
+                 reg_beg: int, reg_end: int, whole_ref_len: int,
+                 ref_nt4: np.ndarray, ref_beg: int):
+        n = len(reads)
+        raw = b"".join([r._raw for r in reads])
+        raw_off = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum([len(r._raw) for r in reads], out=raw_off[1:])
+        seq_off = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum([max(r.l_seq, 0) for r in reads], out=seq_off[1:])
+        pal = np.zeros(n, dtype=np.uint8)
+        if opt.is_ont:
+            pal[:] = [is_ont_palindrome_clip(opt, r) for r in reads]
+        ref = np.ascontiguousarray(ref_nt4, dtype=np.uint8)
+        iopt = np.array([opt.min_bq, opt.noisy_reg_slide_win,
+                         opt.noisy_reg_max_xgaps, opt.end_clip_reg,
+                         opt.end_clip_reg_flank_win, reg_beg, reg_end,
+                         whole_ref_len], dtype=np.int64)
+        dopt = np.array([opt.max_noisy_frac_per_read,
+                         opt.max_var_ratio_per_read], dtype=np.float64)
+        status = np.empty(n, dtype=np.uint8)
+        self.seq = np.empty(int(seq_off[-1]), dtype=np.uint8)
+        ev_off = np.empty(n + 1, dtype=np.int64)
+        rg_off = np.empty(n + 1, dtype=np.int64)
+        counts = np.zeros(2, dtype=np.int64)
+        h = lib.lcd_digar_window(
+            n, raw, _ptr(raw_off), _ptr(pal), _ptr(ref), len(ref), ref_beg,
+            _ptr(iopt), _ptr(dopt), _ptr(status), _ptr(self.seq),
+            _ptr(seq_off), _ptr(ev_off), _ptr(rg_off), _ptr(counts))
+        if not h:
+            raise MemoryError("native digar pass: out of memory")
+        n_ev, n_rg = int(counts[0]), int(counts[1])
+        self.pos = np.empty(n_ev, dtype=np.int64)
+        self.type = np.empty(n_ev, dtype=np.uint8)
+        self.len = np.empty(n_ev, dtype=np.int32)
+        self.qi = np.empty(n_ev, dtype=np.int32)
+        self.low = np.empty(n_ev, dtype=bool)
+        self.rs = np.empty(n_rg, dtype=np.int64)
+        self.re = np.empty(n_rg, dtype=np.int64)
+        self.rl = np.empty(n_rg, dtype=np.int64)
+        self.rchunk = np.empty(n_rg, dtype=bool)
+        lib.lcd_digar_take(h, _ptr(self.pos), _ptr(self.type),
+                           _ptr(self.len), _ptr(self.qi), _ptr(self.low),
+                           _ptr(self.rs), _ptr(self.re), _ptr(self.rl),
+                           _ptr(self.rchunk))
+        self.seq.flags.writeable = False
+        self.status = status.tolist()
+        self.pal = pal.astype(bool).tolist()
+        self.ev_off, self.rg_off = ev_off.tolist(), rg_off.tolist()
+        self.seq_off = seq_off.tolist()
+
+    def digar(self, k: int, rec: BamRecord) -> ReadDigar:
+        """Read k's digar, its arrays views into the window's."""
+        seq = getattr(rec, "_nt4", None)
+        if seq is None:
+            seq = rec._nt4 = self.seq[self.seq_off[k]:self.seq_off[k + 1]]
+        a, b = self.ev_off[k], self.ev_off[k + 1]
+        c, d = self.rg_off[k], self.rg_off[k + 1]
+        return ReadDigar(
+            beg=rec.pos + 1, end=rec.endpos, is_rev=rec.is_rev,
+            pos=self.pos[a:b], type=self.type[a:b], len=self.len[a:b],
+            qi=self.qi[a:b], low_qual=self.low[a:b], seq=seq,
+            qual=rec.qual(),
+            noisy_regs=IntervalSet.from_arrays(self.rs[c:d], self.re[c:d],
+                                               self.rl[c:d]),
+            qlen=rec.l_seq)
+
+    def chunk_regions(self, k0: int, k1: int):
+        """The chunk-level regions of reads k0 .. k1 - 1, in order."""
+        m = slice(self.rg_off[k0], self.rg_off[k1])
+        keep = self.rchunk[m]
+        return self.rs[m][keep], self.re[m][keep], self.rl[m][keep]
+
+
+def collect_window_digars(opt: CallOpts, reads: Sequence[BamRecord],
+                          reg_beg: int, reg_end: int, whole_ref_len: int,
+                          ref_nt4: np.ndarray, ref_beg: int):
+    """The digars of a window's reads, in the given order.
+
+    Returns ([(digar | None-if-skipped, is_palindrome)] per read, the
+    chunk-level noisy regions to add as (starts, ends, labels) arrays in
+    read order).  A digar of the native pass holds views into the
+    window's arrays, and its read's cached nt4 sequence is its view of
+    the window's sequence arena."""
+    lib = load_digar_native()
+    n = len(reads)
+    w = (_WindowArrays(lib, opt, reads, reg_beg, reg_end, whole_ref_len,
+                       ref_nt4, ref_beg) if lib and n else None)
+    status = w.status if w is not None else [_PYTHON] * n
+    n_py = status.count(_PYTHON)
+    _count_reads(n - n_py, n_py)
+    out: List[Tuple[Optional[ReadDigar], bool]] = []
+    parts = []     # chunk-level regions, in read order
+    k0 = 0         # first read whose native regions are not in parts
+    for k, rec in enumerate(reads):
+        st = status[k]
+        if st == _KEPT:
+            out.append((w.digar(k, rec), w.pal[k]))
+        elif st == _SKIPPED:
+            out.append((None, w.pal[k]))
+        else:
+            digar, regions, pal = collect_read_digar(
+                rec, opt, reg_beg, reg_end, whole_ref_len, ref_nt4, ref_beg)
+            out.append((digar, pal))
+            if w is not None:
+                parts.append(w.chunk_regions(k0, k))
+            k0 = k + 1
+            parts.append(tuple(np.array([r[i] for r in regions],
+                                        dtype=np.int64) for i in range(3)))
+    if w is not None:
+        parts.append(w.chunk_regions(k0, n))
+    if not parts:
+        parts.append(tuple(np.empty(0, dtype=np.int64) for _ in range(3)))
+    return out, tuple(np.concatenate([p[i] for p in parts])
+                      for i in range(3))

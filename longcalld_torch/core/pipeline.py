@@ -39,10 +39,7 @@ from longcalld_torch import config
 from longcalld_torch.config import CallOpts
 from longcalld_torch.core import classify, genotype, phase, profile
 from longcalld_torch.core.chunk import WindowChunk
-from longcalld_torch.core.digar import (collect_digar_eqx,
-                                        collect_digar_from_cs,
-                                        collect_digar_from_md,
-                                        collect_digar_from_ref)
+from longcalld_torch.core.digar import collect_window_digars
 from longcalld_torch.core.sites import (collect_all_cand_var_sites,
                                         collect_cand_vars_fast)
 from longcalld_torch.core.windows import Window, plan_windows
@@ -120,35 +117,23 @@ def load_chunk(opt: CallOpts, fasta: FastaFile, bams: Sequence[BamReader],
 
 
 def collect_digars(opt: CallOpts, chunk: WindowChunk) -> None:
-    """collect_digars_from_bam (collect_var.c:1063-1110)."""
+    """collect_digars_from_bam (collect_var.c:1063-1110): the window's
+    reads in one pass of native/digar.c, cs/MD-tagged reads on the
+    per-read Python path (core/digar.py:collect_window_digars)."""
     n = chunk.n_reads
     chunk.digars = [None] * n
-    noisy = IntervalSet()
-    qual_arrays = []
-    for ri in chunk.order:
-        rec = chunk.reads[ri]
-        qual_arrays.append(rec.qual())
-        if rec.has_eqx_cigar():
-            digar, regions, pal = collect_digar_eqx(
-                rec, opt, chunk.reg_beg, chunk.reg_end, chunk.whole_ref_len)
-        elif rec.has_tag("cs"):
-            digar, regions, pal = collect_digar_from_cs(
-                rec, opt, chunk.reg_beg, chunk.reg_end, chunk.whole_ref_len)
-        elif rec.has_tag("MD"):
-            digar, regions, pal = collect_digar_from_md(
-                rec, opt, chunk.reg_beg, chunk.reg_end, chunk.whole_ref_len)
-        else:
-            digar, regions, pal = collect_digar_from_ref(
-                rec, opt, chunk.reg_beg, chunk.reg_end, chunk.whole_ref_len,
-                chunk.ref4, chunk.ref_beg)
+    reads = [chunk.reads[ri] for ri in chunk.order]
+    per_read, regions = collect_window_digars(
+        opt, reads, chunk.reg_beg, chunk.reg_end, chunk.whole_ref_len,
+        chunk.ref4, chunk.ref_beg)
+    qual_arrays = [rec.qual() for rec in reads]
+    for ri, (digar, pal) in zip(chunk.order, per_read):
         chunk.is_palindrome[ri] = 1 if pal else 0
         if digar is None:
             chunk.is_skipped[ri] = 2  # BAM_RECORD_WRONG_MAP
         else:
             chunk.digars[ri] = digar
-            for s, e, lab in regions:
-                noisy.add(s, e, lab)
-    chunk.noisy_regs = noisy.index()
+    chunk.noisy_regs = IntervalSet.from_arrays(*regions)
 
     # one C histogram over the window's concatenated quals (per-read
     # numpy bincounts showed up at ~8% of the warm profile)
@@ -422,12 +407,15 @@ def _worker_handles(opt):
 
 def _worker_totals() -> dict:
     """This process's aligner counters plus the kernel launch counts (the
-    band kernels' and the EM kernel's) and the phasing EM's CUDA and
-    sharded calls: a range's delta of these proves, in the parent, that
-    the kernels ran inside the worker."""
+    band kernels' and the EM kernel's), the phasing EM's CUDA and
+    sharded calls, and the reads of the native and the Python digar
+    paths: a range's delta of these proves, in the parent, that the
+    kernels ran inside the worker."""
+    from longcalld_torch.core import digar
     from longcalld_torch.ops import band, phase_kernel
     from longcalld_torch.ops.wfa import aligner_totals
     tot = aligner_totals()
+    tot.update(digar.read_counts())
     for name, n in {**band.launch_counts(),
                     **phase_kernel.em_launch_counts()}.items():
         tot[f"{name}_launches"] = n

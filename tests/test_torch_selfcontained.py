@@ -38,7 +38,7 @@ COPIED = (
     ["config.py"]
     + [f"{p}/__init__.py" for p in ("core", "io", "ops", "parallel", "utils")]
     + [f"core/{m}.py" for m in (
-        "align_screen", "alnstr", "chunk", "classify", "consensus", "digar",
+        "align_screen", "alnstr", "chunk", "classify", "consensus",
         "genotype", "kmer", "msa", "noisy", "phase", "profile", "refine",
         "sites", "somatic", "somatic_call", "te", "windows")]
     + [f"io/{m}.py" for m in (
@@ -51,9 +51,13 @@ COPIED = (
 # whole modules of the port that merge the JAX package's host code with
 # the port's device code: not copies
 MERGED = ("cli.py", "core/pipeline.py")
-# the port's own forms of the JAX package's device modules, and its span
-# recorder (utils/counters.py: the JAX package's counters plus spans)
-OWN = ("__init__.py", "core/procpool.py", "core/procworker.py",
+# the port's own forms of the JAX package's device modules, its span
+# recorder (utils/counters.py: the JAX package's counters plus spans) and
+# its digar pass (core/digar.py: the JAX package's digar collectors plus
+# the window entry over native/digar.c, held to them by
+# tests/test_torch_digar.py)
+OWN = ("__init__.py", "core/digar.py", "core/procpool.py",
+       "core/procworker.py",
        "ops/phase_kernel.py", "ops/wfa.py", "parallel/mesh.py",
        "utils/counters.py", "utils/device.py")
 
