@@ -8,8 +8,8 @@ seed through the cell's timed path (the same options, sizes and
 capture as a benchmark run; the pool is stopped after each call, so
 that its workers write their sample) and writes one JSON line a seed:
 
-* the program's readings, judged as a run judges them: ``rec_err``,
-  ``aln_bad``, ``em_bad`` and the sample sizes;
+* the program's readings, judged as a run judges them: ``rec_err``
+  (and ``tr_err``), ``aln_bad``, ``em_bad`` and the sample sizes;
 * the control's readings on the same seed.  The configuration states
   no numeric precision (the DP and the EM are integer), so each control
   breaks one guarantee the configuration states and is judged by the
@@ -24,7 +24,8 @@ that its workers write their sample) and writes one JSON line a seed:
     EM stopped before its first round);
   - ``control_rec_err`` (the first ``--control-seeds`` seeds): the
     program on the same contig with every other read left out, so the
-    stated 30x becomes 15x.
+    stated 30x becomes 15x; and ``control_tr_err``, the same call's
+    ``tr_err``, where the configuration plants tandem repeats.
 
 The benchmark's own runs never run this."""
 
@@ -169,8 +170,10 @@ def readings(spec, cell, seeds, control_seeds, device="cuda:0",
                    **checks(c, capdir), **control_readings(cfg, capdir)}
             if k < control_seeds:
                 hdir = os.path.join(work, f"caph_{s}")
-                row["control_rec_err"] = checks(
-                    one_call(contigs[f"h{s}"], hdir, 0), hdir)["rec_err"]
+                half = checks(one_call(contigs[f"h{s}"], hdir, 0), hdir)
+                row["control_rec_err"] = half["rec_err"]
+                if "tr_err" in half:
+                    row["control_tr_err"] = half["tr_err"]
             rows.append(row)
             log(json.dumps(row))
             if out is not None:

@@ -6,18 +6,27 @@ A copy of the contig builder of ``tests/torch_helpers.py`` (contig_truth,
 build_truth, HapMap, apply_ont_errors, make_record, write_synth_bam,
 write_synth_fasta), drawing the same random numbers in the same order, so
 that one seed gives the same FASTA and the same BAM records
-(``perfbench/tests/test_gen.py`` holds them equal).  It writes its BGZF
-and index with ``perfbench/bgzf.py`` and imports nothing of the program.
+(``perfbench/tests/test_bench_gen.py`` holds them equal).  It writes its
+BGZF and index with ``perfbench/bgzf.py`` and imports nothing of the
+program.
 ``make_contigs`` builds many contigs on a pool of processes and records
-each one's read bases, the amount of work the benchmark's rate counts."""
+each one's read bases, the amount of work the benchmark's rate counts.
+
+A configuration whose ``genome`` holds a ``tandem_repeats`` block also
+gets tandem repeats (``plant_repeats``), written into the reference after
+it is drawn and drawn from a generator of their own, so that without the
+block every random number is drawn as before and one seed gives the same
+bytes."""
 
 from __future__ import annotations
 
+import bisect
+import dataclasses
 import multiprocessing
 import os
 import struct
 from concurrent.futures import ProcessPoolExecutor
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -28,14 +37,28 @@ _NT16_LUT = np.array([1, 2, 4, 8, 15], dtype=np.uint8)   # A C G T N
 
 
 def contig_truth(seed, length, margin=2_000, snv_per_kb=1.0,
-                 indel_per_kb=0.125, sv_per_mb=25.0):
+                 indel_per_kb=0.125, sv_per_mb=25.0, tandem_repeats=None,
+                 read_len=None):
     """(reference as nt4 codes, planted variants) of the contig of this
-    seed and length."""
+    seed and length; with ``tandem_repeats`` (and the reads' length) the
+    variants include the repeat loci, as ``(beg, "tr", Locus, "tr")``."""
     rng = np.random.default_rng(seed)
     ref4 = rng.integers(0, 4, length).astype(np.uint8)
-    return ref4, build_truth(rng, ref4, margin, length - margin,
-                             snv_per_kb=snv_per_kb,
-                             indel_per_kb=indel_per_kb, sv_per_mb=sv_per_mb)
+    truth = build_truth(rng, ref4, margin, length - margin,
+                        snv_per_kb=snv_per_kb, indel_per_kb=indel_per_kb,
+                        sv_per_mb=sv_per_mb)
+    if tandem_repeats:
+        if read_len is None:
+            raise ValueError("tandem repeats need the reads' length")
+        truth = plant_repeats(seed, ref4, margin, length - margin, truth,
+                              tandem_repeats, read_len)
+    return ref4, truth
+
+
+def genome_truth(seed: int, length: int, model: Dict, genome: Dict):
+    """contig_truth of a configuration: its read model and genome model."""
+    return contig_truth(seed, length, int(model.get("margin", 2_000)),
+                        read_len=int(model["read_len"]), **genome)
 
 
 def build_truth(rng: np.random.Generator, ref4: np.ndarray, beg: int,
@@ -87,6 +110,171 @@ def build_truth(rng: np.random.Generator, ref4: np.ndarray, beg: int,
     return truth
 
 
+# ---------------- tandem repeats ----------------
+
+# the repeat model's stream: SeedSequence([seed, TR_TAG])
+TR_TAG = 0x7472
+TR_KEYS = {"loci_per_mb", "classes", "impure_copy_share", "polymorphic",
+           "gain_share", "zygosity"}
+TR_CLASS_KEYS = {"share", "motif", "ref_len", "change_bp"}
+TR_ZYGOSITY = ("hom", "het", "compound")
+# an allele is kept this much shorter than a read, so that reads at full
+# depth span it
+TR_READ_SLACK = 2_000
+
+
+@dataclasses.dataclass
+class Locus:
+    """A tandem repeat written into the reference over [beg, end): whole
+    copies of ``motif``, each copy listed in ``impure`` with one
+    substitution.  ``edits`` holds each haplotype's allele: None where it
+    keeps the reference's, else (gained bases, bp lost), the change made
+    at the locus's left end, so the allele is the gained bases followed
+    by ``ref4[beg + lost:end]``."""
+    beg: int
+    end: int
+    motif: np.ndarray
+    impure: Tuple[int, ...]
+    edits: Tuple[Optional[Tuple[np.ndarray, int]], ...]
+
+    def allele(self, ref4: np.ndarray, hap: int) -> np.ndarray:
+        """Haplotype ``hap``'s (1 or 2) sequence over [beg, end)."""
+        e = self.edits[hap - 1]
+        if e is None:
+            return ref4[self.beg:self.end]
+        gain, lost = e
+        return np.concatenate([gain, ref4[self.beg + lost:self.end]])
+
+
+def _log_uniform(rng: np.random.Generator, lo: float, hi: float) -> float:
+    return float(np.exp(rng.uniform(np.log(lo), np.log(hi))))
+
+
+def _motif(rng: np.random.Generator, m: int) -> np.ndarray:
+    """m random bases that are no repeat of a shorter unit."""
+    while True:
+        mot = rng.integers(0, 4, m).astype(np.uint8)
+        if not any(m % p == 0 and np.array_equal(mot, np.tile(mot[:p],
+                                                              m // p))
+                   for p in range(1, m)):
+            return mot
+
+
+def _copies(rng: np.random.Generator, motif: np.ndarray, n: int,
+            impure_share: float) -> Tuple[np.ndarray, List[int]]:
+    """n copies of ``motif``, each carrying one substitution with
+    probability ``impure_share``; (bases, the copies that carry one)."""
+    m = len(motif)
+    seq = np.tile(motif, n)
+    impure = np.flatnonzero(rng.random(n) < impure_share)
+    offs = rng.integers(0, m, len(impure))
+    subs = rng.integers(1, 4, len(impure))
+    at = impure * m + offs
+    seq[at] = (seq[at] + subs) % 4
+    return seq, [int(k) for k in impure]
+
+
+def _edit(rng: np.random.Generator, cls: Dict, motif: np.ndarray,
+          copies: int, impure_share: float, gain_share: float,
+          max_len: int) -> Tuple[np.ndarray, int]:
+    """One allele: whole copies gained or lost at the locus's left end,
+    the length change log-uniform over the class's ``change_bp``."""
+    m = len(motif)
+    gain = rng.random() < gain_share
+    k = max(1, int(round(_log_uniform(rng, *cls["change_bp"]) / m)))
+    room = (max_len - copies * m) // m
+    if gain and room < 1:
+        gain = False
+    if gain:
+        bases, _ = _copies(rng, motif, min(k, room), impure_share)
+        return bases, 0
+    return np.zeros(0, np.uint8), min(k, copies - 1) * m
+
+
+def plant_repeats(seed: int, ref4: np.ndarray, beg: int, end: int,
+                  truth: List[tuple], tr: Dict, read_len: int,
+                  min_gap: int = 150) -> List[tuple]:
+    """Write tandem repeat loci into ``ref4`` over [beg, end) and return
+    ``truth`` without the plants within ``min_gap`` of a locus, with the
+    loci added as ``(beg, "tr", Locus, "tr")``, sorted by position.
+
+    ``tr`` (a configuration's ``genome.tandem_repeats``) gives the loci a
+    Mb, ``classes`` (each a ``share`` of the loci with its ``motif``
+    length range, its ``ref_len`` range in the reference and its
+    ``change_bp`` range of allele length changes, both log-uniform, all
+    ranges inclusive), ``impure_copy_share`` (the share of copies that
+    carry a substitution), ``polymorphic`` (the share of loci whose
+    haplotypes differ from the reference), ``gain_share`` (of alleles
+    that gain copies rather than lose them) and ``zygosity`` (shares of
+    ``hom``, ``het`` on either haplotype, and ``compound``: two different
+    alleles).  Loci lie at least ``min_gap`` apart, and every allele is
+    shorter than ``read_len`` less TR_READ_SLACK."""
+    if set(tr) != TR_KEYS or any(set(c) != TR_CLASS_KEYS
+                                 for c in tr["classes"]) \
+            or set(tr["zygosity"]) != set(TR_ZYGOSITY):
+        raise ValueError(f"tandem_repeats needs exactly {sorted(TR_KEYS)}, "
+                         f"each class {sorted(TR_CLASS_KEYS)} and zygosity "
+                         f"shares of {TR_ZYGOSITY}")
+    rng = np.random.default_rng([int(seed), TR_TAG])
+    max_len = read_len - TR_READ_SLACK - 1
+    classes = tr["classes"]
+    cls_p = np.array([c["share"] for c in classes], dtype=float)
+    zyg_p = np.array([tr["zygosity"][z] for z in TR_ZYGOSITY], dtype=float)
+    imp = float(tr["impure_copy_share"])
+    lo, hi = beg + 200, end - 600
+    n = int(rng.poisson(tr["loci_per_mb"] * max(0, hi - lo) / 1e6))
+    starts = np.sort(rng.integers(lo, hi, n)) if hi > lo else []
+    loci: List[Locus] = []
+    last_end = -10**18
+    for s in starts:
+        s = int(s)
+        cls = classes[int(rng.choice(len(classes), p=cls_p / cls_p.sum()))]
+        m = int(rng.integers(cls["motif"][0], cls["motif"][1] + 1))
+        motif = _motif(rng, m)
+        copies = max(2, int(round(_log_uniform(rng, *cls["ref_len"]) / m)))
+        copies = min(copies, max_len // m)
+        seq, impure = _copies(rng, motif, copies, imp)
+        edits: Tuple = (None, None)
+        if rng.random() < tr["polymorphic"]:
+            z = TR_ZYGOSITY[int(rng.choice(3, p=zyg_p / zyg_p.sum()))]
+            args = (rng, cls, motif, copies, imp, tr["gain_share"], max_len)
+            a = _edit(*args)
+            if z == "hom":
+                edits = (a, a)
+            elif z == "het":
+                edits = (a, None) if rng.random() < 0.5 else (None, a)
+            else:
+                b = _edit(*args)
+                for _ in range(16):
+                    if len(b[0]) - b[1] != len(a[0]) - a[1]:
+                        break
+                    b = _edit(*args)
+                else:
+                    # one copy lost, or one gained where ``a`` lost one
+                    b = ((np.zeros(0, np.uint8), m)
+                         if len(a[0]) or a[1] > m else (motif.copy(), 0))
+                edits = (a, b)
+        e = s + copies * m
+        if s - last_end < min_gap or e > hi:
+            continue
+        ref4[s:e] = seq
+        loci.append(Locus(s, e, motif, tuple(impure), edits))
+        last_end = e
+    begs = [lc.beg for lc in loci]
+
+    def near(p: int, q: int) -> bool:
+        """[p, q) lies within ``min_gap`` of a locus."""
+        k = bisect.bisect_right(begs, q + min_gap - 1) - 1
+        return k >= 0 and loci[k].end + min_gap > p
+
+    kept = [t for t in truth
+            if not near(t[0], t[0] + 1 + (int(t[2]) if t[1] == "del"
+                                          else 0))]
+    out = kept + [(lc.beg, "tr", lc, "tr") for lc in loci]
+    out.sort(key=lambda t: t[0])
+    return out
+
+
 class HapMap:
     """One haplotype: its sequence and a run-length map to the reference."""
 
@@ -107,6 +295,22 @@ class HapMap:
                 lens.append(ln)
 
         for pos, kind, payload, gt in truth:
+            if kind == "tr":
+                # the locus's change at its left end: gained copies as an
+                # insertion, or lost copies as a deletion, then the rest
+                edit = payload.edits[hap - 1]
+                if edit is None or pos < cur:
+                    continue
+                gain, lost = edit
+                segs.append(ref4[cur:pos])
+                push(CMATCH, pos - cur)
+                segs.append(np.asarray(gain, dtype=np.uint8))
+                push(CINS, len(gain))
+                push(CDEL, lost)
+                segs.append(ref4[pos + lost:payload.end])
+                push(CMATCH, payload.end - pos - lost)
+                cur = payload.end
+                continue
             on = gt == "hom" or (gt == "het1") == (hap == 1)
             if not on or pos < cur:
                 continue
@@ -367,7 +571,7 @@ def make_contig(task) -> Dict:
     d, stem, tname, seed, model, genome, length, level = task[:8]
     every = task[8] if len(task) > 8 else 1
     margin = int(model.get("margin", 2_000))
-    ref4, truth = contig_truth(seed, length, margin, **genome)
+    ref4, truth = genome_truth(seed, length, model, genome)
     fa = os.path.join(d, stem + ".fa")
     bam = os.path.join(d, stem + ".bam")
     write_fasta(fa, tname, ref4)

@@ -14,12 +14,18 @@ and PyTorch on the CPU; nothing here imports the program.
 * ``score_records``: VCF records against the planted variants, the
   copy of ``tests/torch_helpers.py:evaluate_f1`` (exact SNVs, indels at
   their left-normalised anchors, SVs by position and length within a
-  tolerance), with the zygosity of every matched SNV and indel."""
+  tolerance), with the zygosity of every matched SNV and indel.
+* ``score_tr_loci``: the records at planted tandem repeat loci, judged
+  by the two haplotype sequences they make of each locus, whatever
+  records represent them; ``outside`` leaves those windows out of what
+  ``score_records`` scores."""
 
 from __future__ import annotations
 
+import bisect
 import itertools
-from typing import Dict, List, Sequence
+import re
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -347,3 +353,187 @@ def score_records(body: Sequence[str], truth: List[tuple], beg: int,
             out["fp"] += 1
     out["fn"] += used.count(False)
     return out
+
+
+# ---------------- repeat loci by haplotype sequence ----------------
+
+# a locus is judged over itself and this many bases on either side
+TR_FLANK = 50
+# a window whose records fall into more phase groups (a phase set, or an
+# unphased heterozygous record, each) than this is not enumerated and
+# reads wrong
+TR_MAX_GROUPS = 16
+_ACGTN = np.frombuffer(b"ACGTN", dtype=np.uint8)
+
+
+def _bases(a) -> str:
+    return _ACGTN[np.asarray(a, dtype=np.uint8)].tobytes().decode()
+
+
+def _parse(line: str, k: int):
+    """(0-based start, REF, ALTs, the two GT alleles, phase group or None
+    where the record is homozygous) of VCF record ``k``."""
+    f = line.rstrip("\n").split("\t")
+    sample = dict(zip(f[8].split(":"), f[9].split(":"))) if len(f) > 9 \
+        else {}
+    gt = sample.get("GT", ".")
+    al = [int(a) if a.isdigit() else 0 for a in re.split(r"[|/]", gt)]
+    al = (al * 2)[:2]
+    group = None
+    if al[0] != al[1]:
+        group = (("ps", sample["PS"]) if "|" in gt and "PS" in sample
+                 else ("rec", k))
+    return int(f[1]) - 1, f[3].upper(), f[4].upper().split(","), al, group
+
+
+def _plant_span(t) -> Tuple[int, int]:
+    p, kind, pl, _ = t
+    return p, p + 1 + (int(pl) if kind == "del" else 0)
+
+
+def _plant_edit(t, ref_s: str, ws: int):
+    p, kind, pl, _ = t
+    anchor = ref_s[p - ws]
+    if kind == "snv":
+        return p, 1, "ACGT"[int(pl)]
+    if kind == "ins":
+        return p, 1, anchor + _bases(pl)
+    return p, 1 + int(pl), anchor
+
+
+def _apply(ref_s: str, ws: int, edits):
+    """The window's reference (from ``ws``) with ``edits`` (start, length
+    in the reference, replacement) made, or None where two overlap."""
+    out, cur = [], 0
+    for p, rl, alt in sorted(edits, key=lambda e: e[0]):
+        a = p - ws
+        if a < cur:
+            return None
+        out += [ref_s[cur:a], alt]
+        cur = a + rl
+    out.append(ref_s[cur:])
+    return "".join(out)
+
+
+def _windows(loci, spans, beg: int, end: int) -> List[List[int]]:
+    """Each locus near [beg, end) and TR_FLANK on either side, grown over
+    every span (a record's or a plant's) that reaches into it, windows
+    that touch merged."""
+    wins = sorted([lb - TR_FLANK, le + TR_FLANK] for lb, le, _, _ in loci
+                  if lb - TR_FLANK < end and le + TR_FLANK > beg)
+    changed = True
+    while changed:
+        merged: List[List[int]] = []
+        for w in wins:
+            if merged and w[0] <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], w[1])
+            else:
+                merged.append(list(w))
+        wins = merged
+        starts = [w[0] for w in wins]
+        changed = False
+        for a, b in spans:
+            k = bisect.bisect_right(starts, b - 1) - 1
+            if k < 0 or wins[k][1] <= a:
+                continue
+            if a < wins[k][0] or b > wins[k][1]:
+                wins[k] = [min(a, wins[k][0]), max(b, wins[k][1])]
+                changed = True
+    return wins
+
+
+def _called_pairs(ref_s: str, ws: int, recs):
+    """Every unordered pair of haplotype sequences the records make of
+    the window: a phase set, or an unphased heterozygous record, may face
+    either way."""
+    groups = sorted({r[4] for r in recs if r[4] is not None}, key=str)
+    if len(groups) > TR_MAX_GROUPS:
+        return
+    for flips in itertools.product((0, 1), repeat=max(0, len(groups) - 1)):
+        flip = dict(zip(groups[1:], flips))
+        haps = ([], [])
+        for p, ref, alts, al, group in recs:
+            f = flip.get(group, 0)
+            for h in (0, 1):
+                x = al[h ^ f]
+                if x > len(alts):
+                    return
+                if x:
+                    haps[h].append((p, len(ref), alts[x - 1]))
+        yield _apply(ref_s, ws, haps[0]), _apply(ref_s, ws, haps[1])
+
+
+def score_tr_loci(body: Sequence[str], loci, ref4: np.ndarray, beg: int,
+                  end: int, plants: Sequence[tuple] = ()) -> Dict:
+    """The records at planted tandem repeat loci against the truth, by
+    haplotype sequence.  ``loci``: (begin, end, haplotype 1's sequence,
+    haplotype 2's) of each locus, as nt4 codes; ``plants``: the other
+    planted variants (``score_records``' truth), of which a window holds
+    those that a record grows it over.
+
+    Each locus is taken with TR_FLANK bases on either side, grown over
+    every record and plant reaching into it, windows that touch merged.
+    A window whose two called sequences, as an unordered pair, equal the
+    truth's base for base is right; every record overlapping it, every
+    ALT, counts, and a phase set or an unphased heterozygous record may
+    face either way.  Returns ``tr_loci`` (loci in windows that lie in
+    [beg, end)), ``tr_bad`` (those of them in wrong windows) and
+    ``windows``: every window, those at the ends too, which ``outside``
+    leaves out of ``score_records``' input."""
+    recs = [_parse(ln, k) for k, ln in enumerate(body)]
+    spans = [(r[0], r[0] + len(r[1])) for r in recs] + \
+        [_plant_span(t) for t in plants]
+    wins = _windows(loci, spans, beg, end)
+    out = {"tr_loci": 0, "tr_bad": 0, "windows": [tuple(w) for w in wins]}
+    starts = [w[0] for w in wins]
+    in_win: List[Dict[str, list]] = [{"loci": [], "recs": [], "plants": []}
+                                     for _ in wins]
+
+    def place(key, item, a, b):
+        k = bisect.bisect_right(starts, b - 1) - 1
+        if k >= 0 and wins[k][1] > a:
+            in_win[k][key].append(item)
+
+    for lc in loci:
+        place("loci", lc, lc[0], lc[1])
+    for r, (a, b) in zip(recs, spans):
+        place("recs", r, a, b)
+    for t in plants:
+        place("plants", t, *_plant_span(t))
+    for (ws, we), got in zip(wins, in_win):
+        if ws < beg or we > end:
+            continue
+        ref_s = _bases(ref4[ws:we])
+        truth = ([], [])
+        for lb, le, s1, s2 in got["loci"]:
+            for h, seq in enumerate((s1, s2)):
+                truth[h].append((lb, le - lb, _bases(seq)))
+        for t in got["plants"]:
+            e = _plant_edit(t, ref_s, ws)
+            for h in (0, 1):
+                if t[3] == "hom" or (t[3] == "het1") == (h == 0):
+                    truth[h].append(e)
+        want = sorted(_apply(ref_s, ws, e) for e in truth)
+        ok = any(None not in pair and sorted(pair) == want
+                 for pair in _called_pairs(ref_s, ws, got["recs"]))
+        out["tr_loci"] += len(got["loci"])
+        out["tr_bad"] += 0 if ok else len(got["loci"])
+    return out
+
+
+def outside(body: Sequence[str], plants: Sequence[tuple], windows
+            ) -> Tuple[List[str], List[tuple]]:
+    """The records and plants that overlap none of ``windows``."""
+    starts = [w[0] for w in windows]
+
+    def free(a, b):
+        k = bisect.bisect_right(starts, b - 1) - 1
+        return k < 0 or windows[k][1] <= a
+
+    kept = []
+    for ln in body:
+        f = ln.split("\t", 4)
+        p = int(f[1]) - 1
+        if free(p, p + len(f[3])):
+            kept.append(ln)
+    return kept, [t for t in plants if free(*_plant_span(t))]

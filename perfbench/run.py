@@ -17,7 +17,9 @@ With ``--trace 0`` the result carries the end-to-end metrics, with
 torch.profiler.  After the window the run judges what the window
 produced (perfbench/reference.py): each call's records against the
 variants planted in its contig, and the sampled answers of the aligner
-and of the phasing EM against the plain references.  The numbers
+and of the phasing EM against the plain references; where the
+configuration plants tandem repeats, the loci by haplotype sequence
+(``tr_err``, against the cell's limit of that name).  The numbers
 compared are printed with their limits as the last lines on standard
 error and under ``checks`` in the result, the last line of standard
 output."""
@@ -420,22 +422,38 @@ def judge(cfg, lim, calls, capdir, on_cuda, seed):
     from perfbench import gen, reference
 
     checks = []
+    genome = cfg.get("genome", {})
+    repeats = bool(genome.get("tandem_repeats"))
+    if repeats and "tr_err" not in lim:
+        raise KeyError("the configuration plants tandem repeats, and the "
+                       "cell's limits have no tr_err to judge them by")
     # 1. each call's records against its contig's planted variants, in
     # the part of the contig that the reads cover at full depth: within a
     # read length of either end of the simulated span the depth ramps
-    # down, and the calls missed there are the contig's, not the caller's
-    tot = {"truth": 0, "fp": 0, "fn": 0, "zygosity": 0}
+    # down, and the calls missed there are the contig's, not the caller's.
+    # Planted tandem repeat loci are judged by haplotype sequence, and the
+    # records and plants of their windows are left out of the rest
+    tot = {"truth": 0, "fp": 0, "fn": 0, "zygosity": 0, "tr_loci": 0,
+           "tr_bad": 0}
     margin = int(cfg["reads"].get("margin", 2000))
     edge = margin + int(cfg["reads"]["read_len"])
     for c in calls:
         ct = c["contig"]
-        ref4, truth = gen.contig_truth(ct["seed"], ct["length"], margin,
-                                       **cfg.get("genome", {}))
+        ref4, truth = gen.genome_truth(ct["seed"], ct["length"],
+                                       cfg["reads"], genome)
         body = [ln for ln in c["vcf"].splitlines()
                 if ln and not ln.startswith("#")]
-        got = reference.score_records(body, truth, edge,
-                                      ct["length"] - edge, ref4)
-        for k in tot:
+        plants = [t for t in truth if t[1] != "tr"]
+        beg, end = edge, ct["length"] - edge
+        if repeats:
+            loci = [(t[2].beg, t[2].end, t[2].allele(ref4, 1),
+                     t[2].allele(ref4, 2)) for t in truth if t[1] == "tr"]
+            got = reference.score_tr_loci(body, loci, ref4, beg, end, plants)
+            tot["tr_loci"] += got["tr_loci"]
+            tot["tr_bad"] += got["tr_bad"]
+            body, plants = reference.outside(body, plants, got["windows"])
+        got = reference.score_records(body, plants, beg, end, ref4)
+        for k in ("truth", "fp", "fn", "zygosity"):
             tot[k] += got[k]
     rec_err = ((tot["fp"] + tot["fn"] + tot["zygosity"])
                / max(tot["truth"], 1))
@@ -443,6 +461,11 @@ def judge(cfg, lim, calls, capdir, on_cuda, seed):
         f"zygosity {tot['zygosity']}")
     checks.append({"name": "rec_err", "value": rec_err,
                    "limit": lim["rec_err"]})
+    if repeats:
+        log(f"tandem repeats: {tot['tr_loci']} loci, {tot['tr_bad']} wrong")
+        checks.append({"name": "tr_err",
+                       "value": tot["tr_bad"] / max(tot["tr_loci"], 1),
+                       "limit": lim["tr_err"]})
 
     # 2. the pool (or the in-process path) drove the card in every call
     if on_cuda:

@@ -2,20 +2,25 @@
 arithmetic, that a window calls only contigs no earlier call read, that
 no banned module loads, and that a run catches each fault the cells can
 have (the exchange between chips has no place on one chip), while the
-same run unbroken reads correct.  The control's readings on a small
-contig.  The faults plant themselves under the timed path
+same run unbroken reads correct.  A configuration that plants tandem
+repeats is judged by its loci too, and not at all without a limit for
+them.  The control's readings on a small contig.  The faults plant
+themselves under the timed path
 (perfbench/capture.py); the harness's look for a card is skipped by
 running on ``device="cpu"``, where the kernels' plain versions serve."""
 
 import contextlib
+import io
 import os
 import subprocess
 import sys
 
 import pytest
 
-from perfbench import memsample, run
+from perfbench import gen, memsample, run
 from perfbench.spec import ROOT, Spec
+from perfbench.tests import truth_vcf as tv
+from perfbench.tests.test_bench_gen import TR_TEST
 
 # the in-process path: the region traffic (no cell of BENCHMARK.json
 # runs it yet) on the HiFi configuration
@@ -171,6 +176,92 @@ def test_too_few_device_pairs_reads_not_correct(monkeypatch):
     assert res["correct"] is False
     bad = {c["name"] for c in checks if c["value"] > c["limit"]}
     assert bad == {"aln_device_pairs_missing"}, checks
+
+
+# the repeat model of the tests, denser, so that tiny contigs hold tens of
+# loci; its sound tiny runs read tr_err 0
+TINY_TR = dict(TR_TEST, loci_per_mb=600)
+TINY_TR_ERR = 0.1
+
+
+class RepeatSpec(TinySpec):
+    """The tiny cells on the HiFi configuration with tandem repeats."""
+
+    def config(self, cell):
+        cfg = dict(super().config(cell))
+        cfg["genome"] = dict(cfg["genome"], tandem_repeats=TINY_TR)
+        return cfg
+
+    def limits(self, cell):
+        lim = super().limits(cell)["limits"]
+        return {"limits": dict(lim, tr_err=TINY_TR_ERR)}
+
+
+def _repeat_call(seed=20261017, length=120_000):
+    """A call whose records are the truth of a tiny repeat contig."""
+    cfg = RepeatSpec().config({"config": "hifi_hg002_30x"})
+    ref4, truth = gen.genome_truth(seed, length, cfg["reads"],
+                                   cfg["genome"])
+    vcf = "\n".join(tv.truth_lines(truth, ref4)) + "\n"
+    return cfg, {"contig": {"seed": seed, "length": length}, "vcf": vcf,
+                 "em_launches": 1}
+
+
+def test_judge_refuses_a_repeat_cell_without_a_tr_err_limit(tmp_path):
+    cfg, call = _repeat_call()
+    with pytest.raises(KeyError, match="tr_err"):
+        run.judge(cfg, {"rec_err": 0.004, "aln_bad": 0, "em_bad": 0},
+                  [call], str(tmp_path), False, 1)
+    checks = {c["name"]: c for c in run.judge(
+        cfg, {"rec_err": 0.004, "aln_bad": 0, "em_bad": 0, "tr_err": 0.01},
+        [call], str(tmp_path), False, 1)}
+    assert checks["tr_err"] == {"name": "tr_err", "value": 0.0,
+                                "limit": 0.01}
+    assert checks["rec_err"]["value"] == 0.0
+
+
+def _alter_records(text: str) -> str:
+    """Every record that changes the length by 2 bp or more, one base
+    short of it."""
+    out = []
+    for ln in text.splitlines(keepends=True):
+        f = ln.split("\t")
+        if not ln.startswith("#") and len(f) > 4 and \
+                abs(len(f[3]) - len(f[4])) >= 2:
+            k = 3 if len(f[3]) > len(f[4]) else 4
+            f[k] = f[k][:-1]
+        out.append("\t".join(f))
+    return "".join(out)
+
+
+@pytest.mark.parametrize("altered", [False, True])
+def test_a_repeat_cell_reads_its_loci(monkeypatch, altered):
+    """The program's own records of tiny repeat contigs (the pool, on the
+    host) read tr_err 0; the same records altered where the program
+    writes them read not correct, by tr_err among others."""
+    from longcalld_torch.core import pipeline
+    real = pipeline.run_call
+
+    def run_call(opt, out, **kw):
+        buf = io.StringIO()
+        n = real(opt, buf, **kw)
+        out.write(_alter_records(buf.getvalue()))
+        return n
+
+    if altered:
+        monkeypatch.setattr(pipeline, "run_call", run_call)
+    s = RepeatSpec()
+    with tiny_constants():
+        res, checks = run.run_cell(s, s.cell("hifi.genome"), 20261017, 60,
+                                   False, device="cpu")
+    got = {c["name"]: c for c in checks}
+    bad = {c["name"] for c in checks if c["value"] > c["limit"]}
+    if altered:
+        assert res["correct"] is False and "tr_err" in bad, checks
+    else:
+        # on the host the pool routes no pair to the card's kernels
+        assert bad == {"aln_device_pairs_missing"}, checks
+        assert got["tr_err"]["value"] == 0.0
 
 
 class _Aligner:
