@@ -407,10 +407,11 @@ def _worker_handles(opt):
 
 def _worker_totals() -> dict:
     """This process's aligner counters plus the kernel launch counts (the
-    band kernels' and the EM kernel's), the phasing EM's CUDA and
-    sharded calls, and the reads of the native and the Python digar
-    paths: a range's delta of these proves, in the parent, that the
-    kernels ran inside the worker."""
+    band kernels' and the EM kernel's), band_fwd's launches and real rows
+    by shape (``band_fwd_<B>x<Lp>x<batch>_launches`` / ``_rows``), the
+    phasing EM's CUDA and sharded calls, and the reads of the native and
+    the Python digar paths: a range's delta of these proves, in the
+    parent, that the kernels ran inside the worker."""
     from longcalld_torch.core import digar
     from longcalld_torch.ops import band, phase_kernel
     from longcalld_torch.ops.wfa import aligner_totals
@@ -419,6 +420,9 @@ def _worker_totals() -> dict:
     for name, n in {**band.launch_counts(),
                     **phase_kernel.em_launch_counts()}.items():
         tot[f"{name}_launches"] = n
+    for (b, lp, n), (launches, rows) in band.fwd_rows().items():
+        tot[f"band_fwd_{b}x{lp}x{n}_launches"] = launches
+        tot[f"band_fwd_{b}x{lp}x{n}_rows"] = rows
     tot["phase_cuda_calls"] = phase_kernel.cuda_calls()
     tot["phase_sharded_calls"] = phase_kernel.sharded_calls()
     return tot
@@ -432,9 +436,12 @@ def _range_worker(payload):
     delta, (span records, dropped count)); each per-window entry is
     either None (no reads) or (sorted variant records, n_reads, boundary
     state).  The spans are those this process recorded since its last
-    range, taken out of its store (utils/counters.take_spans)."""
+    range, taken out of its store (utils/counters.take_spans).  The
+    ``range`` span carries the aligner's routing threshold
+    (``device_min_cells``, None in a worker that routed no batch)."""
+    from longcalld_torch.ops import wfa
     opt, wslice, first_k, count, device = payload
-    with counters.span("range", first=first_k, count=count):
+    with counters.span("range", first=first_k, count=count) as rattrs:
         dev = None
         if getattr(opt, "use_device", True):
             from longcalld_torch.utils.device import resolve_device
@@ -466,7 +473,9 @@ def _range_worker(payload):
                     variants.sort(key=lambda v: v.pos)
             results.append((variants, chunk.n_reads, _boundary_state(chunk)))
         after = _worker_totals()
-    return (results, {k: after[k] - before[k] for k in after},
+        rattrs["device_min_cells"] = wfa.device_min_cells()
+    # a counter first seen inside the range (a launch shape) counts from 0
+    return (results, {k: after[k] - before.get(k, 0) for k in after},
             counters.take_spans())
 
 

@@ -60,6 +60,9 @@ _count_lock = threading.Lock()
 _launches = {"band_fwd": 0, "band_bwd": 0}
 # launches by (B, Lp, batch), beside the totals
 _shapes = {name: collections.Counter() for name in _launches}
+# band_fwd's real rows (the pairs' pattern lengths summed) by (B, Lp,
+# batch), as the caller counts them (wfa.align_device)
+_fwd_rows = collections.Counter()
 
 
 def launch_counts() -> dict:
@@ -74,17 +77,35 @@ def launch_shapes() -> dict:
                 for name, c in _shapes.items()}
 
 
+def fwd_rows() -> dict:
+    """{(B, Lp, batch): (kernel launches, real rows)} of band_fwd since
+    the last reset.  Rows are those ``count_fwd_rows`` was given, on CUDA
+    tensors and CPU tensors alike; launches are the kernel's alone."""
+    with _count_lock:
+        shapes = _shapes["band_fwd"]
+        return {k: (shapes.get(k, 0), _fwd_rows.get(k, 0))
+                for k in sorted(set(shapes) | set(_fwd_rows))}
+
+
 def reset_launch_counts() -> None:
     with _count_lock:
         for k in _launches:
             _launches[k] = 0
             _shapes[k].clear()
+        _fwd_rows.clear()
 
 
 def _count(name: str, shape) -> None:
     with _count_lock:
         _launches[name] += 1
         _shapes[name][shape] += 1
+
+
+def count_fwd_rows(shape, rows: int) -> None:
+    """Add a band_fwd call's real rows (its plen summed on the host, no
+    read of the device) under its (B, Lp, batch)."""
+    with _count_lock:
+        _fwd_rows[shape] += rows
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:

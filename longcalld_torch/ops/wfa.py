@@ -55,11 +55,13 @@ compact_events = band.compact_events
 
 
 def align_device(P, Tband, plen, tlen, dlo, B: int, Lp: int, x: int, o1: int,
-                 e1: int, o2: int, e2: int):
+                 e1: int, o2: int, e2: int, plen_host=None):
     """Forward DP, then the traceback walk with its event compaction, per
     chunk of the batch.  Returns (evs (batch, K) int32, meta (batch, 4)
     int32 = [score, b0, edge_min, n_ev]).  On CUDA that is two kernel
-    launches a chunk; each chunk's walk writes its rows of the outputs."""
+    launches a chunk; each chunk's walk writes its rows of the outputs.
+    ``plen_host``, the pattern lengths as a host array, counts each
+    forward launch's real rows into ``band.fwd_rows``."""
     batch, dev = P.shape[0], P.device
     step = max(1, TB_BUDGET_BYTES // ((Lp + 1) * B))
     evs = torch.empty((batch, band.event_k(Lp)), dtype=torch.int32,
@@ -67,6 +69,9 @@ def align_device(P, Tband, plen, tlen, dlo, B: int, Lp: int, x: int, o1: int,
     meta = torch.empty((batch, 4), dtype=torch.int32, device=dev)
     for k0 in range(0, batch, step):
         sl = slice(k0, min(k0 + step, batch))
+        if plen_host is not None:
+            band.count_fwd_rows((B, Lp, sl.stop - sl.start),
+                                int(plen_host[sl].sum()))
         tbs, finals, edge_min = band.banded_dp(
             P[sl], Tband[sl], plen[sl], tlen[sl], dlo[sl], B, Lp, x, o1, e1,
             o2, e2)
@@ -181,6 +186,10 @@ class BatchAligner:
         self.cells_device = 0
         self.cells_memo = 0
         self.cells_retry_host = 0
+        # of cells_host, those kept there by the band rule alone (above
+        # device_min_cells, band bucket above 512); ns in the host C aligner
+        self.cells_host_wide = 0
+        self.host_align_ns = 0
         # reference-cost model accumulators (wfa.py:554-562)
         self.model_wf_cells = 0
         self.model_poa_cells = 0
@@ -250,15 +259,19 @@ class BatchAligner:
     def _host_many(self, pairs, flags):
         """One GIL-released C call runs every pair over a worker pool
         (native/affine2p.c)."""
-        if len(pairs) > 1:
-            out = align_affine2p_many(pairs, flags, self.x, self.o1,
-                                      self.e1, self.o2, self.e2,
-                                      n_threads=self.n_threads)
-            if out is not None:
-                return out
-        return [align_affine2p(p, t, self.x, self.o1, self.e1,
-                               self.o2, self.e2, f)
-                for (p, t), f in zip(pairs, flags)]
+        t0 = time.perf_counter_ns()
+        try:
+            if len(pairs) > 1:
+                out = align_affine2p_many(pairs, flags, self.x, self.o1,
+                                          self.e1, self.o2, self.e2,
+                                          n_threads=self.n_threads)
+                if out is not None:
+                    return out
+            return [align_affine2p(p, t, self.x, self.o1, self.e1,
+                                   self.o2, self.e2, f)
+                    for (p, t), f in zip(pairs, flags)]
+        finally:
+            self.host_align_ns += time.perf_counter_ns() - t0
 
     def _submit_work(self, pairs, flags):
         if not pairs:
@@ -275,10 +288,14 @@ class BatchAligner:
         # needing a band bucket past 512 also stay on the host (wfa.py:
         # 659-671), so only B = 256 reaches the device from here (the
         # kernels take every B up to 4096: _align_batch reaches them)
-        small = [k for k, (p, t) in enumerate(pairs)
-                 if len(p) * len(t) <= self.device_min_cells
-                 or _bucket(abs(len(t) - len(p)) + 2 * self.band_pad,
-                            BAND_BUCKETS) > 512]
+        small = []
+        for k, (p, t) in enumerate(pairs):
+            if len(p) * len(t) <= self.device_min_cells:
+                small.append(k)
+            elif _bucket(abs(len(t) - len(p)) + 2 * self.band_pad,
+                         BAND_BUCKETS) > 512:
+                small.append(k)
+                self.cells_host_wide += len(p) * len(t)
         if small:
             small_set = set(small)
             big = [k for k in range(len(pairs)) if k not in small_set]
@@ -384,7 +401,7 @@ class BatchAligner:
             args = from_numpy((P, Tband, plens, tlens, dlo.astype(np.int32)),
                               self.device)
         evs_d, meta_d = align_device(*args, B, Lp, self.x, self.o1, self.e1,
-                                     self.o2, self.e2)
+                                     self.o2, self.e2, plen_host=plens)
         return (pairs, n_real, dlo, host_mask, Lp, evs_d, meta_d)
 
     def _collect_batch(self, handle) -> List[AlnResult]:
@@ -481,18 +498,28 @@ _ALIGNER_CACHE: dict = {}
 
 def aligner_totals() -> dict:
     """Sum of the routing/audit counters over every aligner of this process
-    (DP cells on device vs host vs memo, fallbacks, memo hits), plus the
-    host C layer's executed-cell counters."""
+    (DP cells on device vs host vs memo, the host ones kept by the band
+    rule, the host C aligner's ns, fallbacks, memo hits), plus the host C
+    layer's executed-cell counters."""
     tot = {"cells_device": 0, "cells_host": 0, "cells_memo": 0,
            "n_memo_hit": 0, "n_fallback": 0, "n_dispatch": 0,
            "n_dev_rounds": 0, "bytes_h2d": 0, "model_wf_cells": 0,
-           "model_poa_cells": 0}
+           "model_poa_cells": 0, "cells_host_wide": 0, "host_align_ns": 0}
     for al in _ALIGNER_CACHE.values():
         for k in tot:
             tot[k] += int(getattr(al, k, 0))
     from longcalld_torch.ops.affine_align import native_cell_counters
     tot.update(native_cell_counters())
     return tot
+
+
+def device_min_cells() -> Optional[int]:
+    """The routing threshold of this process's device aligners (the
+    calibrated one, unless an option set it); None before the first
+    device batch."""
+    got = [al.device_min_cells for al in _ALIGNER_CACHE.values()
+           if al.use_device and al.device_min_cells is not None]
+    return max(got) if got else None
 
 
 def get_aligner(opt, device=None) -> BatchAligner:

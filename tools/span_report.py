@@ -17,6 +17,10 @@ too) with:
   wall, the part of a worker's range that no window or stage span covers;
 * ``window_cpu_share``: the ``window`` spans' thread CPU time over
   their wall, and ``window_runq_share``, their run-queue wait over it;
+* ``device_min_cells``: each pool worker's aligner routing threshold
+  (its calibrated one, unless an option set it), from the attribute of
+  its ``range`` spans: {worker: [thresholds]}, printed on standard error
+  too;
 * ``gaps``: the 10 longest idle gaps of the card (perfbench/trace.py's
   breakdown, on the same events), each with the worker-seconds spent in
   it by the innermost span of each worker (a span's part of the gap less
@@ -77,6 +81,11 @@ def report(events, t0, t1, metrics) -> dict:
     win_wall = sum(s.t1 - s.t0 for s in wins)
     runq = [s.attrs["runq_ns"] for s in wins
             if s.attrs.get("runq_ns") is not None]
+    thresholds = collections.defaultdict(set)
+    for s in ranges:
+        v = (s.attrs or {}).get("device_min_cells")
+        if v is not None:
+            thresholds[s.worker].add(int(v))
 
     # the card's idle gaps, as perfbench/trace.py:breakdown finds them
     import numpy as np
@@ -115,6 +124,9 @@ def report(events, t0, t1, metrics) -> dict:
         "window_runq_share": (sum(runq) / max(1, win_wall)
                               if runq else None),
         "n_windows": len(wins),
+        "device_min_cells": {str(w): sorted(v) for w, v in
+                             sorted(thresholds.items(),
+                                    key=lambda kv: (kv[0] is None, kv[0]))},
         "gaps": rows,
     }
 
@@ -146,6 +158,9 @@ def main() -> int:
         return rc or 1
     result, _ = seen["result"]
     line = report(*seen["window"], result["metrics"])
+    for w, v in line.get("device_min_cells", {}).items():
+        print(f"worker {w}: device_min_cells {', '.join(map(str, v))}",
+              file=sys.stderr, flush=True)
     line.update(workload=args.workload, seed=args.seed,
                 card=result.get("card", run.power_limit()),
                 correct=result["correct"])
